@@ -10,11 +10,15 @@ and the same output: one line ``elapsed_seconds <TAB> total_KiB``.
 ``--batch`` objects form one batch, and ``--device-resident`` keeps that
 batch on the card as one [k, N] tensor and times kernel B1 on it with CUDA
 events (warm-up, then the median of several timed runs), so the number
-measures the kernel, not the host link. ``--device`` picks the codec's
-device (``cuda`` by default).
+measures the kernel, not the host link; as in the reference it is for
+matrix codecs only. ``--device`` picks the codec's device (``cuda`` by
+default). Any plugin runs through its codec's ``encode``/``decode``,
+Clay included (kernels B3-B5 on the card):
 
     python -m ceph_tpu_torch.bench.ec_bench -P k=8 -P m=3 -p isa \\
         --device-resident -S 1048576 --batch 128
+    python -m ceph_tpu_torch.bench.ec_bench -p clay -P k=8 -P m=4 \\
+        -P d=11 -w decode -e 2
 """
 
 from __future__ import annotations
@@ -128,7 +132,11 @@ class ErasureCodeBench:
         from ceph_tpu_torch.ops import gf_cuda
         if self.codec.device.type != "cuda":
             raise SystemExit("--device-resident needs --device cuda")
-        mat = np.asarray(self.codec.coding_matrix, dtype=np.uint8)
+        mat = getattr(self.codec, "coding_matrix", None)
+        if mat is None:
+            raise SystemExit("--device-resident needs a matrix codec "
+                             "(jerasure/isa/shec)")
+        mat = np.asarray(mat, dtype=np.uint8)
         n_lanes = max(self.args.size * self.args.batch // self.k, 1)
         gen = torch.Generator(device=self.codec.device)
         gen.manual_seed(self.args.seed)

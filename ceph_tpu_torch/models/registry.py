@@ -34,6 +34,8 @@ PLUGIN_VERSION = "ceph-tpu-torch-plugin-1"
 _BUILTIN_MODULES = {
     "jerasure": "ceph_tpu_torch.models.jerasure",
     "isa": "ceph_tpu_torch.models.isa",
+    "shec": "ceph_tpu_torch.models.shec",
+    "clay": "ceph_tpu_torch.models.clay",
 }
 
 

@@ -8,7 +8,12 @@ Same contract as ``ceph_tpu/ops/backend.py``:
 with ``data`` a uint8 torch tensor and the result on its device. Backends:
 
 - ``cuda``:  kernel B1 (ops/gf_cuda.py) — on a CUDA tensor it launches the
-  kernel or raises; a failed build or launch is never retried elsewhere;
+  kernel or raises; a failed build or launch is never retried elsewhere.
+  A matrix larger than ``gf_cuda.MAX_M x MAX_K`` (Clay's linearized
+  transforms) is routed BY SHAPE, before any launch, to the plain
+  bit-sliced product ``gf_torch.matvec`` on the same device, counted in
+  ``gf_torch.dense_calls`` — the reference's pallas backend routes such
+  matrices to its plain XLA product the same way (gf_pallas.py:237-243);
 - ``torch``: the plain bit-sliced version (ops/gf_torch.py);
 - ``numpy``: the gf256 host oracle.
 
@@ -28,8 +33,16 @@ def _numpy(mat: np.ndarray, data: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(out).to(data.device)
 
 
+def _cuda(mat: np.ndarray, data: torch.Tensor) -> torch.Tensor:
+    m, k = np.shape(mat)
+    if m > gf_cuda.MAX_M or k > gf_cuda.MAX_K:
+        gf_torch.dense_calls += 1
+        return gf_torch.matvec(mat, data)
+    return gf_cuda.matvec_device(mat, data)
+
+
 BACKENDS = {
-    "cuda": gf_cuda.matvec_device,
+    "cuda": _cuda,
     "torch": gf_torch.matvec,
     "numpy": _numpy,
 }

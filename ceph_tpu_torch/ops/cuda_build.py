@@ -22,6 +22,9 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 
@@ -110,6 +113,28 @@ def load(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
     return lib
+
+
+class DeviceArrays:
+    """A kernel's host tables (numpy), uploaded once per device."""
+
+    def __init__(self, arrays: dict) -> None:
+        self.arrays = arrays
+        self._lock = threading.Lock()
+        self._dev: dict[str, dict] = {}
+
+    def on(self, device) -> dict:
+        """name -> tensor on ``device`` for every numpy array."""
+        key = str(device)
+        with self._lock:
+            dev = self._dev.get(key)
+            if dev is None:
+                dev = self._dev[key] = {
+                    name: torch.from_numpy(np.ascontiguousarray(arr)).to(
+                        device)
+                    for name, arr in self.arrays.items()
+                    if isinstance(arr, np.ndarray)}
+        return dev
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -25,6 +25,15 @@ from ceph_tpu_torch.ops import bitmatrix
 #: expansion of the input
 _STEP_ELEMS = 1 << 27
 
+#: products routed here by shape from the ``cuda`` backend (matrices larger
+#: than kernel B1 takes; ops/backend.py) since the last reset
+dense_calls = 0
+
+
+def reset_dense_calls() -> None:
+    global dense_calls
+    dense_calls = 0
+
 
 def bit_matrix(mat: np.ndarray, device) -> torch.Tensor:
     """[m, k] GF(2^8) matrix -> [8m, 8k] float32 0/1 tensor on ``device``."""

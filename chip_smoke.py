@@ -9,8 +9,10 @@ Phases, each printing one JSON line:
 
 1. device: the card's name, ``nvidia-smi`` name and power limit, and the
    device-memory rate read from the card;
-2. build: kernels B1 (csrc/gf_matvec.cu) and B2 (csrc/crc32c_rows.cu),
-   one ``nvcc`` each, started together, into ``build/torch_ext/``;
+2. build: kernels B1 (csrc/gf_matvec.cu), B2 (csrc/crc32c_rows.cu), B3
+   (csrc/clay_encode.cu), B4 (csrc/clay_transform.cu) and B5
+   (csrc/gf_block_sparse.cu), one ``nvcc`` each, all started together,
+   into ``build/torch_ext/``;
 3. kernels: each kernel against its plain torch version on the card,
    byte-exact, over ragged shapes, decode matrices and a 32x128 matrix;
 4. main path, at the north-star benchmark's size (bench.py:47-49): the
@@ -25,7 +27,28 @@ Phases, each printing one JSON line:
    runs): B1 encode and e=1/e=2 decode on a resident [8, 16 Mi] batch, B2
    on the main path's rows, each beside its plain version and its bound,
    and the fused flush's wall time, with a torch.profiler breakdown of
-   one flush (device busy share, top device and host entries).
+   one flush (device busy share, top device and host entries);
+6. Clay kernels against their plain versions on the card, byte-exact: B3
+   and B4 over k=8,m=4,d=11, k=4,m=2 and k=4,m=3,d=6 (virtual nodes) at
+   ragged L, B4 over 1- to 4-erasure signatures, B5 over the k=8,m=4,d=11
+   decode-1, decode-2 and repair matrices and a random 5% matrix;
+7. Clay main path, the repo's Clay deployment k=8, m=4, d=11 on CUDA, one
+   128 MiB object (8 data chunks of 16 MiB, L = 256 KiB per sub-chunk):
+   ``codec.encode`` (B3); degraded reads e=1 and e=2 through
+   ``codec.decode`` (calibrated B5 vs dense), through a codec with
+   ``decode_kernel=true`` (B4) and with ``CEPH_TPU_CLAY_SPARSE=always``
+   (B5); a single-node repair from d=11 helpers reading 16 of 64
+   sub-chunks each; ``ec_util.encode``/``decode`` on 8 objects of 1 MiB
+   at stripe unit 4096. Every read must equal the data, the parity must
+   equal the host layered oracle on a lane window, and kernel outputs
+   must equal the plain versions at full size. Launch counts are zeroed
+   before and read after this phase;
+8. Clay times on the card (CUDA events; warm-up, then the median): B3,
+   B4 and B5 at the main path's shapes, each beside its plain version,
+   its bound and the dense bit-sliced product on the same linearized
+   matrix (the product the calibration compares against), with the
+   calibration's picks and timings, and a torch.profiler breakdown of one
+   128 MiB ``codec.encode``.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any mismatch, missing GPU, failed build
@@ -36,6 +59,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -57,6 +81,16 @@ OBJECTS = 128
 CHUNK = 4096                       # osd_pool_erasure_code_stripe_unit default
 RESIDENT_LANES = OBJECTS * OBJECT_BYTES // K     # 16 Mi bytes per shard
 SEED = 20261016
+
+#: the repo's Clay deployment (BASELINE.json configs[3], bench.py:546):
+#: q=4, t=3, nu=0, 64 sub-chunks per chunk
+CLAY = {"k": "8", "m": "4", "d": "11"}
+CLAY_PROFILES = [CLAY, {"k": "4", "m": "2"}, {"k": "4", "m": "3", "d": "6"}]
+CLAY_L = (1, 63, 4097, 1 << 18)
+CLAY_SUB = 1 << 18                 # L: bytes per sub-chunk on the main path
+CLAY_OBJECT = 8 * 64 * CLAY_SUB    # one 128 MiB object, 16 MiB per chunk
+CLAY_EC_OBJECTS = 8                # ec_util leg: 8 objects of 1 MiB
+CLAY_WINDOW = 64                   # lanes checked against the host oracle
 
 
 def emit(obj) -> None:
@@ -103,9 +137,9 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def flush_profile(flush) -> dict:
-    """Where one fused flush's wall time goes: torch.profiler over one
-    flush; device busy = the sum of device-side activity (kernels and
+def flush_profile(flush, phase: str = "flush_profile") -> dict:
+    """Where one call's wall time goes: torch.profiler over one call of
+    ``flush``; device busy = the sum of device-side activity (kernels and
     copies, one stream, so no overlap), host = top CPU ops by self time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -124,11 +158,328 @@ def flush_profile(flush) -> dict:
         return [[e.key[:70], getattr(e, attr) / 1e3, e.count]
                 for e in events]
 
-    return {"phase": "flush_profile", "wall_ms": wall * 1e3,
+    return {"phase": phase, "wall_ms": wall * 1e3,
             "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e6 / wall,
             "top_device_ms": top(dev, "self_device_time_total"),
             "top_host_self_ms": top(host, "self_cpu_time_total")}
+
+
+# -- Clay (kernels B3, B4, B5) ---------------------------------------------
+
+def _bound(nbytes: float, ops: float, hbm: float) -> tuple[float, str]:
+    """(least ms, what bounds it): bytes over the card's memory rate vs
+    GF multiplies as 8x8 bit-matrix products (128 ops each) at the
+    dense int8 tensor peak."""
+    t_bytes, t_ops = nbytes / hbm, ops / H100_INT8_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def clay_kernel_checks(dev, gen) -> dict:
+    """Phase 6: B3, B4 and B5 against their plain versions on the card."""
+    from ceph_tpu_torch.models import clay_device, instance
+    from ceph_tpu_torch.ops import gf_block_sparse, gf_block_sparse_torch
+
+    def rand(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                             generator=gen)
+
+    errs = {"b3": 0, "b4": 0, "b5": 0}
+    cases = {"b3": 0, "b4": 0, "b5": 0}
+    for prof in CLAY_PROFILES:
+        codec = instance().factory("clay", prof, device=dev)
+        ssc, qt = codec.sub_chunk_no, codec.q * codec.t
+        n = codec.k + codec.m
+        enc = clay_device.build_encode_kernel(codec)
+        for L in CLAY_L:
+            x = rand(codec.k, ssc, L)
+            got = enc(x)
+            torch.cuda.synchronize()
+            err = max_err(got, enc.plain(x))
+            check(err == 0, f"B3 {prof} L={L} differs from plain")
+            errs["b3"], cases["b3"] = max(errs["b3"], err), cases["b3"] + 1
+        for e in range(1, codec.m + 1):
+            lost = list(range(0, n, max(1, n // e)))[:e]
+            erased = codec._pad_erased(codec._node_id(i) for i in lost)
+            er = sorted(erased)
+            fn = clay_device.build_transform_kernel(codec, erased)
+            for L in CLAY_L:
+                c = rand(qt, ssc, L)
+                c[er] = 0
+                c[codec.k:codec.k + codec.nu] = 0
+                got = fn(c)
+                torch.cuda.synchronize()
+                err = max_err(got, fn.plain(c)[er])
+                check(err == 0, f"B4 {prof} lost={lost} L={L} differs")
+                errs["b4"] = max(errs["b4"], err)
+                cases["b4"] += 1
+    host = instance().factory("clay", dict(CLAY, backend="numpy"),
+                              device="cpu")
+    rng = np.random.default_rng(SEED)
+    mats = {"decode-1": host._decode_matrix(tuple(range(1, 12)), (0,)),
+            "decode-2": host._decode_matrix(tuple(range(2, 12)), (0, 1)),
+            "repair": host._repair_matrix(0, tuple(range(1, 12))),
+            "random 5%": (rng.integers(0, 256, (128, 640)) *
+                          (rng.random((128, 640)) < 0.05)).astype(np.uint8)}
+    for label, mat in mats.items():
+        plan = gf_block_sparse.plan_for(mat)
+        for L in CLAY_L:
+            x = rand(mat.shape[1], L)
+            got = gf_block_sparse.matvec_device(mat, x)
+            torch.cuda.synchronize()
+            err = max_err(got, gf_block_sparse_torch.matvec(plan, x))
+            check(err == 0, f"B5 {label} N={L} differs from plain")
+            errs["b5"], cases["b5"] = max(errs["b5"], err), cases["b5"] + 1
+    emit({"phase": "clay_kernels", "profiles": CLAY_PROFILES,
+          "lanes": CLAY_L, "cases": cases, "max_abs_err": errs,
+          "block_sparse_stats": {label: gf_block_sparse.occupancy_stats(mat)
+                                 for label, mat in mats.items()},
+          "tolerance": 0})
+    return errs
+
+
+def clay_main_path(dev, rng) -> dict:
+    """Phase 7: the Clay k=8, m=4, d=11 codec on CUDA through its entry
+    points, on one 128 MiB object, with launch counts."""
+    from ceph_tpu_torch.models import instance
+    from ceph_tpu_torch.ops import (clay_cuda, gf_block_sparse,
+                                    gf_block_sparse_cuda,
+                                    gf_block_sparse_torch, gf_cuda, gf_torch)
+    from ceph_tpu_torch.osd import ec_util
+
+    codec = instance().factory("clay", CLAY, device=dev)
+    kcodec = instance().factory("clay", dict(CLAY, decode_kernel="true"),
+                                device=dev)
+    check(codec.resolved_backend == "cuda", "clay codec is not on cuda")
+    n, ssc = codec.get_chunk_count(), codec.sub_chunk_no
+    data = rng.integers(0, 256, CLAY_OBJECT, dtype=np.uint8)
+    cs = codec.get_chunk_size(CLAY_OBJECT)
+    check(cs == ssc * CLAY_SUB, f"chunk size {cs}")
+    sinfo = ec_util.StripeInfo(stripe_width=8 * CHUNK, chunk_size=CHUNK)
+    objs = [rng.integers(0, 256, OBJECT_BYTES, dtype=np.uint8)
+            for _ in range(CLAY_EC_OBJECTS)]
+    walls = {}
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        walls[label] = time.perf_counter() - t0
+        return out
+
+    def read(label, c, lost):
+        avail = {i: enc[i] for i in range(n) if i not in lost}
+        out = timed(label, lambda: c.decode(list(lost), avail, cs))
+        for i in lost:
+            check(np.array_equal(out[i], enc[i]), f"{label}: chunk {i}")
+
+    clay_cuda.reset_launches()
+    gf_block_sparse_cuda.reset_launches()
+    gf_cuda.reset_launches()
+    gf_torch.reset_dense_calls()
+    enc = timed("encode", lambda: codec.encode(list(range(n)), data))
+    for lost in ([0], [0, 1]):
+        read(f"decode e={len(lost)}", codec, lost)
+        read(f"decode_kernel e={len(lost)}", kcodec, lost)
+    saved = os.environ.get("CEPH_TPU_CLAY_SPARSE")
+    os.environ["CEPH_TPU_CLAY_SPARSE"] = "always"
+    try:
+        scodec = instance().factory("clay", CLAY, device=dev)
+        read("sparse=always e=2", scodec, [0, 1])
+    finally:
+        if saved is None:
+            os.environ.pop("CEPH_TPU_CLAY_SPARSE", None)
+        else:
+            os.environ["CEPH_TPU_CLAY_SPARSE"] = saved
+    plan = codec.minimum_to_decode([0], list(range(1, n)))
+    check(len(plan) == 11 and all(sum(c for _, c in r) == ssc // 4
+                                  for r in plan.values()),
+          f"repair plan {plan}")
+    helpers = {c: np.concatenate([enc[c][o * CLAY_SUB:(o + k) * CLAY_SUB]
+                                  for o, k in r]) for c, r in plan.items()}
+    rep = timed("repair", lambda: codec.decode([0], helpers, cs))
+    check(np.array_equal(rep[0], enc[0]), "repair of chunk 0")
+    ec_bytes = 0
+    for obj in objs:
+        shards = ec_util.encode(sinfo, codec, obj)
+        stripes = obj.reshape(-1, 8, CHUNK)
+        for i in range(8):
+            check(np.array_equal(shards[i], stripes[:, i].ravel()),
+                  f"ec_util data shard {i}")
+        avail = {i: shards[i] for i in range(n) if i not in (0, 9)}
+        out = ec_util.decode(sinfo, codec, avail, [0, 9])
+        check(np.array_equal(out[0], shards[0]) and
+              np.array_equal(out[9], shards[9]), "ec_util degraded read")
+        ec_bytes += len(obj)
+    launches = {"clay_encode": clay_cuda.encode_launches,
+                "clay_transform": clay_cuda.transform_launches,
+                "gf_block_sparse": gf_block_sparse_cuda.launches,
+                "gf_matvec": gf_cuda.launches,
+                "dense_route": gf_torch.dense_calls}
+    check(all(launches[k] > 0 for k in
+              ("clay_encode", "clay_transform", "gf_block_sparse")),
+          f"a Clay kernel never launched on the main path: {launches}")
+
+    # checks after the counts were read: data chunks, host oracle on a
+    # lane window, kernels vs plain versions at full size
+    for i in range(8):
+        check(np.array_equal(enc[i], data[i * cs:(i + 1) * cs]),
+              f"data chunk {i}")
+    host = instance().factory(
+        "clay", dict(CLAY, backend="numpy", linearize="false"), device="cpu")
+    win = {i: enc[i].reshape(ssc, CLAY_SUB)[:, :CLAY_WINDOW].reshape(-1)
+           for i in range(8)}
+    oracle = host.encode_chunks(list(range(8, n)), win)
+    for i in range(8, n):
+        check(np.array_equal(
+            oracle[i], enc[i].reshape(ssc, CLAY_SUB)[:, :CLAY_WINDOW]
+            .reshape(-1)), f"parity {i} vs host layered oracle")
+    x = torch.from_numpy(codec._stack(enc, range(8), ssc, CLAY_SUB)).to(dev)
+    x = x.reshape(8, ssc, CLAY_SUB)
+    enc_fn = codec._enc_fn
+    par = enc_fn(x)
+    check(torch.equal(par, enc_fn.plain(x)), "B3 vs plain at full size")
+    check(np.array_equal(par.cpu().numpy().reshape(4, -1),
+                         np.stack([enc[i] for i in range(8, n)])),
+          "B3 vs codec parity")
+    key = kcodec._pad_erased([0, 1])
+    tfn = kcodec._lin_cache[("ker", key)]
+    c_full = torch.zeros((12, ssc, CLAY_SUB), dtype=torch.uint8, device=dev)
+    for i in range(n):
+        if i not in key:
+            c_full[i] = torch.from_numpy(enc[i].reshape(ssc, CLAY_SUB)).to(dev)
+    check(torch.equal(tfn(c_full), tfn.plain(c_full)[sorted(key)]),
+          "B4 vs plain at full size")
+    avail2 = tuple(range(2, n))
+    mat2 = codec._lin_cache[("dec", avail2, (0, 1))]
+    x2 = torch.from_numpy(codec._stack(enc, avail2, ssc, CLAY_SUB)).to(dev)
+    check(torch.equal(gf_block_sparse.matvec_device(mat2, x2),
+                      gf_block_sparse_torch.matvec(
+                          gf_block_sparse.plan_for(mat2), x2)),
+          "B5 vs plain at full size")
+    calib = {f"{key[1]} {key[3]}" if key[1] == "dec" else key[1]:
+             {"path": fn.path, **fn.measured}
+             for key, fn in codec._lin_cache.items() if key[0] == "sparse"}
+    emit({"phase": "clay_main_path", "profile": "clay k=8 m=4 d=11",
+          "object_bytes": CLAY_OBJECT, "chunk_size": cs,
+          "sub_chunk_bytes": CLAY_SUB,
+          "repair_read_bytes": sum(len(v) for v in helpers.values()),
+          "ec_util_objects": CLAY_EC_OBJECTS, "ec_util_bytes": ec_bytes,
+          "stripe_unit": CHUNK, "launches": launches, "wall_s": walls,
+          "calibration": calib, "ok": True})
+    return {"codec": codec, "kcodec": kcodec, "x": x, "c_full": c_full,
+            "key": key, "x2": x2, "mat2": mat2, "enc": enc, "data": data,
+            "launches": launches}
+
+
+def clay_times(dev, hbm, smi, st) -> dict:
+    """Phase 8: B3, B4 and B5 at the main path's shapes: kernel, plain
+    version, bound and the dense bit-sliced product (library)."""
+    from ceph_tpu_torch.bench.ec_bench import time_cuda
+    from ceph_tpu_torch.models import clay_device
+    from ceph_tpu_torch.ops import gf_block_sparse, gf_block_sparse_torch
+    from ceph_tpu_torch.ops import gf_torch
+
+    codec, kcodec, ssc, L = st["codec"], st["kcodec"], 64, CLAY_SUB
+    out = {}
+    # B3: encode [8*64, L] -> [4*64, L]
+    x, enc_fn = st["x"], codec._enc_fn
+    arr = clay_device.encode_kernel_arrays(enc_fn.tables)
+    muls = int(((arr["a1"] != 0) & (arr["ps_row"] >= 0)).sum() +
+               ((arr["a2"] != 0) & (arr["pa_row"] >= 0)).sum() +
+               ssc * (arr["dmat"] != 0).sum() +
+               ((arr["b1"] != 0) & (arr["pc_row"] >= 0)).sum() +
+               (arr["b2"] != 0).sum() + (arr["b3"] != 0).sum())
+    enc_mat = codec._encode_matrix()
+    xs = x.reshape(8 * ssc, L)
+    check(torch.equal(gf_torch.matvec(enc_mat, xs),
+                      enc_fn(x).reshape(4 * ssc, L)), "B3 vs dense product")
+    bound, by = _bound(12 * ssc * L, 128 * muls * L, hbm)
+    ms = time_cuda(lambda: enc_fn(x), 10) * 1e3
+    out["b3"] = {"ms": ms, "GBps": 8 * ssc * L / ms / 1e6,
+                 "plain_ms": time_cuda(lambda: enc_fn.plain(x), 1, 3) * 1e3,
+                 "library_ms": time_cuda(
+                     lambda: gf_torch.matvec(enc_mat, xs), 1, 3) * 1e3,
+                 "bound_ms": bound, "bound_by": by, "gf_muls_per_lane": muls,
+                 "shape": [8 * ssc, L]}
+    # B4: the e=2 signature, padded to 4 erased nodes
+    key, c_full = st["key"], st["c_full"]
+    tfn = kcodec._lin_cache[("ker", key)]
+    tarr = clay_device.transform_kernel_arrays(kcodec, key)
+    muls = 0
+    for li in range(tarr["n_levels"]):
+        u = tarr["u_rows"][tarr["u_off"][li]:tarr["u_off"][li + 1]]
+        c = tarr["c_rows"][tarr["c_off"][li]:tarr["c_off"][li + 1]]
+        np_ = tarr["p_off"][li + 1] - tarr["p_off"][li]
+        muls += int((tarr["a1"][u] != 0).sum() + (tarr["a2"][u] != 0).sum() +
+                    np_ * (tarr["dmat"] != 0).sum() +
+                    (tarr["b1"][c] != 0).sum() + (tarr["b2"][c] != 0).sum() +
+                    (tarr["b3"][c] != 0).sum())
+    nbytes = (int(tarr["load"].sum()) + tarr["e"]) * ssc * L
+    bound, by = _bound(nbytes, 128 * muls * L, hbm)
+    x2, mat2 = st["x2"], st["mat2"]
+    ms = time_cuda(lambda: tfn(c_full), 10) * 1e3
+    out["b4"] = {"ms": ms, "GBps": 10 * ssc * L / ms / 1e6,
+                 "plain_ms": time_cuda(lambda: tfn.plain(c_full), 1, 3) * 1e3,
+                 "library_ms": time_cuda(
+                     lambda: gf_torch.matvec(mat2, x2), 1, 3) * 1e3,
+                 "bound_ms": bound, "bound_by": by, "gf_muls_per_lane": muls,
+                 "levels": tarr["n_levels"], "erased_nodes": sorted(key)}
+    # B5: decode-2, decode-1 and repair matrices of the main path
+    mats = {"decode-2": (mat2, x2)}
+    avail1 = tuple(range(1, 12))
+    mat1 = codec._lin_cache[("dec", avail1, (0,))]
+    mats["decode-1"] = (mat1, torch.from_numpy(codec._stack(
+        st["enc"], avail1, ssc, L)).to(dev))
+    helpers = tuple(range(1, 12))
+    matr = codec._lin_cache[("rep", 0, helpers)]
+    mats["repair"] = (matr, torch.randint(
+        0, 256, (matr.shape[1], L), dtype=torch.uint8, device=dev))
+    out["b5"] = {}
+    for label, (mat, xm) in mats.items():
+        plan = gf_block_sparse.plan_for(mat)
+        nnz = int((mat != 0).sum())
+        rows_in = int((mat != 0).any(axis=0).sum())
+        bound, by = _bound((rows_in + mat.shape[0]) * L, 128 * nnz * L, hbm)
+        ms = time_cuda(lambda: gf_block_sparse.matvec_device(mat, xm),
+                       10) * 1e3
+        out["b5"][label] = {
+            "ms": ms, "GBps": mat.shape[1] * L / ms / 1e6,
+            "plain_ms": time_cuda(
+                lambda: gf_block_sparse_torch.matvec(plan, xm), 1, 3) * 1e3,
+            "library_ms": time_cuda(
+                lambda: gf_torch.matvec(mat, xm), 1, 3) * 1e3,
+            "bound_ms": bound, "bound_by": by, "shape": list(mat.shape),
+            "nonzeros": nnz, "cost_frac": plan.cost_frac}
+    data = st["data"]
+    emit(flush_profile(lambda: codec.encode(list(range(12)), data),
+                       "clay_encode_profile"))
+    emit({"phase": "clay_times", "card": smi, "lanes": L, **out})
+    return out
+
+
+def clay_phases(dev, hbm, smi) -> list:
+    """Phases 6-8; returns the B3, B4 and B5 entries of the kernels line."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    errs = clay_kernel_checks(dev, gen)
+    st = clay_main_path(dev, np.random.default_rng(SEED + 2))
+    t = clay_times(dev, hbm, smi, st)
+    launches = st["launches"]
+    b5 = t["b5"]["decode-2"]
+    rows = [("clay_encode (B3)", "clay_encode", "clay_encode.cu",
+             "ceph_tpu/models/clay_device.py:724", errs["b3"], t["b3"]),
+            ("clay_transform (B4)", "clay_transform", "clay_transform.cu",
+             "ceph_tpu/models/clay_device.py:1051", errs["b4"], t["b4"]),
+            ("gf_block_sparse (B5)", "gf_block_sparse", "gf_block_sparse.cu",
+             "ceph_tpu/ops/gf_block_sparse.py:193", errs["b5"], b5)]
+    return [{"name": name, "route": "cuda",
+             "source": f"ceph_tpu_torch/csrc/{src}", "replaces": ref,
+             "launches": launches[key], "max_abs_err": err, "ms": m["ms"],
+             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+             "pass": True}
+            for name, key, src, ref, err, m in rows]
 
 
 def main() -> int:
@@ -160,7 +511,8 @@ def main() -> int:
 
     # -- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
-    logs = cuda_build.build_all(["gf_matvec", "crc32c_rows"])
+    logs = cuda_build.build_all(["gf_matvec", "crc32c_rows", "clay_encode",
+                                 "clay_transform", "gf_block_sparse"])
     build_s = time.perf_counter() - t0
     for kname, log in logs.items():
         print(f"--- nvcc {kname} ---\n{log}", file=sys.stderr)
@@ -322,7 +674,10 @@ def main() -> int:
           "fused_flush_GBps": OBJECTS * OBJECT_BYTES / flush_s / 1e9,
           "fused_flush_peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
 
-    # -- 6. summary --------------------------------------------------------
+    # -- 6-8. Clay -------------------------------------------------------
+    clay = clay_phases(dev, hbm, smi)
+
+    # -- 9. summary --------------------------------------------------------
     emit({"kernels": [
         {"name": "gf_matvec (B1)", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/gf_matvec.cu",
@@ -342,7 +697,7 @@ def main() -> int:
          "bound_by": "bytes" if b2_bound_bytes >= b2_bound_ops
          else "operations",
          "library_ms": None, "pass": True},
-    ]})
+    ] + clay})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

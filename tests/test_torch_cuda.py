@@ -3,8 +3,12 @@
 Kernel B1 (ops/gf_cuda.py) and kernel B2 (ops/crc32c_cuda.py) must equal
 their plain versions byte for byte (tolerance 0), over ragged shapes,
 decode matrices and the largest matrix B1 takes, and the fused flush on
-CUDA must equal the fused flush on the CPU. Every test here needs an
-NVIDIA GPU and skips without one.
+CUDA must equal the fused flush on the CPU. Kernels B3 and B4
+(ops/clay_cuda.py) and B5 (ops/gf_block_sparse_cuda.py) must equal their
+plain versions over Clay profiles, ragged L and erasure signatures, a
+matrix larger than B1 takes must take the counted dense route, and the
+Clay codec on CUDA must give the CPU codec's bytes. Every test here needs
+an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -18,9 +22,11 @@ import numpy as np
 import pytest
 import torch
 
-from ceph_tpu_torch.models import instance
-from ceph_tpu_torch.ops import (crc32c_cuda, crc32c_torch, gf256, gf_cuda,
-                                gf_torch)
+from ceph_tpu_torch.models import clay_device, instance
+from ceph_tpu_torch.ops import (backend, clay_cuda, crc32c_cuda,
+                                crc32c_torch, gf256, gf_block_sparse,
+                                gf_block_sparse_cuda, gf_block_sparse_torch,
+                                gf_cuda, gf_torch)
 from ceph_tpu_torch.osd import ec_util
 
 pytestmark = pytest.mark.cuda
@@ -120,3 +126,101 @@ def test_fused_flush_on_cuda_matches_cpu(cuda):
     out = ec_util.decode(sinfo, on_card, avail, [0, 1])
     for i in (0, 1):
         assert np.array_equal(out[i], np.concatenate([r[1][i] for r in got]))
+
+
+CLAY_PROFILES = [{"k": "8", "m": "4", "d": "11"}, {"k": "4", "m": "2"},
+                 {"k": "4", "m": "3", "d": "6"}]
+CLAY_L = (1, 63, 4097)
+
+
+def _clay(profile, device):
+    return instance().factory("clay", profile, device=device)
+
+
+@pytest.mark.parametrize("profile", CLAY_PROFILES,
+                         ids=["k8m4d11", "k4m2", "k4m3d6"])
+def test_clay_encode_kernel_matches_plain(cuda, profile):
+    codec = _clay(profile, cuda)
+    enc = clay_device.build_encode_kernel(codec)
+    clay_cuda.reset_launches()
+    for L in CLAY_L:
+        x = torch.from_numpy(_bytes(L, codec.k, codec.sub_chunk_no, L)).to(cuda)
+        got = enc(x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, enc.plain(x)), L
+    assert clay_cuda.encode_launches == len(CLAY_L)
+
+
+@pytest.mark.parametrize("profile", CLAY_PROFILES,
+                         ids=["k8m4d11", "k4m2", "k4m3d6"])
+def test_clay_transform_kernel_matches_plain(cuda, profile):
+    codec = _clay(profile, cuda)
+    n, qt = codec.k + codec.m, codec.q * codec.t
+    for e in range(1, codec.m + 1):
+        lost = list(range(0, n, max(1, n // e)))[:e]
+        erased = codec._pad_erased(codec._node_id(i) for i in lost)
+        fn = clay_device.build_transform_kernel(codec, erased)
+        for L in CLAY_L:
+            c = _bytes(L + e, qt, codec.sub_chunk_no, L)
+            c[sorted(erased)] = 0
+            c[codec.k:codec.k + codec.nu] = 0
+            x = torch.from_numpy(c).to(cuda)
+            got = fn(x)
+            torch.cuda.synchronize()
+            assert torch.equal(got, fn.plain(x)[sorted(erased)]), (lost, L)
+
+
+def test_block_sparse_kernel_matches_plain(cuda):
+    codec = _clay(CLAY_PROFILES[0], "cpu")
+    rng = np.random.default_rng(5)
+    mats = [codec._decode_matrix(tuple(range(2, 12)), (0, 1)),
+            codec._repair_matrix(0, tuple(range(1, 12))),
+            (rng.integers(0, 256, (128, 640)) *
+             (rng.random((128, 640)) < 0.05)).astype(np.uint8),
+            np.zeros((8, 16), np.uint8)]
+    gf_block_sparse_cuda.reset_launches()
+    for mat in mats:
+        plan = gf_block_sparse.plan_for(mat)
+        for n in (1, 15, 16, 4097):
+            d = torch.from_numpy(_bytes(n, mat.shape[1], n)).to(cuda)
+            got = gf_block_sparse.matvec_device(mat, d)
+            torch.cuda.synchronize()
+            assert torch.equal(got, gf_block_sparse_torch.matvec(plan, d))
+    assert gf_block_sparse_cuda.launches == 4 * len(mats)
+
+
+def test_backend_shape_route_is_counted(cuda):
+    big = _bytes(1, 64, 176)
+    d = torch.from_numpy(_bytes(2, 176, 4097)).to(cuda)
+    gf_torch.reset_dense_calls()
+    gf_cuda.reset_launches()
+    got = backend.matvec(big, d, "cuda")
+    assert gf_torch.dense_calls == 1 and gf_cuda.launches == 0
+    assert np.array_equal(got.cpu().numpy(),
+                          gf256.gf_matvec_chunks(big, d.cpu().numpy()))
+    backend.matvec(big[:32, :128], d[:128].contiguous(), "cuda")
+    assert gf_torch.dense_calls == 1 and gf_cuda.launches == 1
+
+
+@pytest.mark.parametrize("extra,env", [({}, "auto"), ({}, "always"),
+                                       ({"decode_kernel": "true"}, "auto")])
+def test_clay_codec_on_cuda_matches_cpu(cuda, monkeypatch, extra, env):
+    monkeypatch.setenv("CEPH_TPU_CLAY_SPARSE", env)
+    profile = dict(CLAY_PROFILES[0], **extra)
+    on_card, on_cpu = _clay(profile, cuda), _clay(profile, "cpu")
+    data = _bytes(9, 8 * 64 * 300 - 11).tobytes()
+    want = on_cpu.encode(list(range(12)), data)
+    got = on_card.encode(list(range(12)), data)
+    for i in range(12):
+        assert np.array_equal(got[i], want[i]), i
+    cs = len(want[0])
+    for lost in ([0], [3, 10]):
+        avail = {i: want[i] for i in range(12) if i not in lost}
+        out = on_card.decode(lost, avail, cs)
+        for i in lost:
+            assert np.array_equal(out[i], want[i]), (lost, i)
+    plan = on_card.minimum_to_decode([0], list(range(1, 12)))
+    sc = cs // 64
+    helpers = {c: np.concatenate([want[c][o * sc:(o + cnt) * sc]
+                                  for o, cnt in r]) for c, r in plan.items()}
+    assert np.array_equal(on_card.decode([0], helpers, cs)[0], want[0])

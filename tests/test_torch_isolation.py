@@ -43,7 +43,12 @@ def test_scan_covers_the_port():
     rel = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("ceph_tpu_torch/ops/gf_cuda.py",
                  "ceph_tpu_torch/osd/ec_util.py",
-                 "ceph_tpu_torch/models/registry.py"):
+                 "ceph_tpu_torch/models/registry.py",
+                 "ceph_tpu_torch/models/clay.py",
+                 "ceph_tpu_torch/models/clay_device.py",
+                 "ceph_tpu_torch/models/shec.py",
+                 "ceph_tpu_torch/ops/clay_cuda.py",
+                 "ceph_tpu_torch/ops/gf_block_sparse.py"):
         assert must in rel
 
 
