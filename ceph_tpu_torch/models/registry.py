@@ -36,6 +36,8 @@ _BUILTIN_MODULES = {
     "isa": "ceph_tpu_torch.models.isa",
     "shec": "ceph_tpu_torch.models.shec",
     "clay": "ceph_tpu_torch.models.clay",
+    "example": "ceph_tpu_torch.models.example_xor",
+    "lrc": "ceph_tpu_torch.models.lrc",
 }
 
 

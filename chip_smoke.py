@@ -10,9 +10,9 @@ Phases, each printing one JSON line:
 1. device: the card's name, ``nvidia-smi`` name and power limit, and the
    device-memory rate read from the card;
 2. build: kernels B1 (csrc/gf_matvec.cu), B2 (csrc/crc32c_rows.cu), B3
-   (csrc/clay_encode.cu), B4 (csrc/clay_transform.cu) and B5
-   (csrc/gf_block_sparse.cu), one ``nvcc`` each, all started together,
-   into ``build/torch_ext/``;
+   (csrc/clay_encode.cu), B4 (csrc/clay_transform.cu), B5
+   (csrc/gf_block_sparse.cu) and B6 (csrc/gf_xor.cu), one ``nvcc`` each,
+   all started together, into ``build/torch_ext/``;
 3. kernels: each kernel against its plain torch version on the card,
    byte-exact, over ragged shapes, decode matrices and a 32x128 matrix;
 4. main path, at the north-star benchmark's size (bench.py:47-49): the
@@ -48,7 +48,29 @@ Phases, each printing one JSON line:
    its bound and the dense bit-sliced product on the same linearized
    matrix (the product the calibration compares against), with the
    calibration's picks and timings, and a torch.profiler breakdown of one
-   128 MiB ``codec.encode``.
+   128 MiB ``codec.encode``;
+9. B6 against its plain version on the card, byte-exact: ISA encode
+   m=1..3, jerasure ``reed_sol_van`` and ``cauchy_good`` at k=8, m=3,
+   decode e=1..3, at B = 1, 3, 64 and 4097 blocks of 128 words per strip,
+   and the largest matrix it takes (32x128); once against the host oracle;
+10. the XOR-strip main path at ISA ``reed_sol_van`` k=8, m=3 on the RS
+   flush's 128 MiB batch (8 chunks of 16 MiB, strips [64, 4096, 128]
+   int32): ``get_kernel(isa)(data)`` checked against the host oracle,
+   degraded reads of all 56 erasure patterns of 1 to 3 chunks that lose
+   data chunk 0 on survivors in strip layout, and ``encode_strips`` on the
+   resident strips. B6's launch count is zeroed before and read after;
+   then a torch.profiler breakdown of one host-boundary encode;
+11. B6 times (CUDA events; warm-up, then the median): encode and decode
+   e=1/2/3 on the resident strips, each beside its bytes bound, its
+   XOR-count bound and its plain version, with B1's encode time at the
+   same bytes from phase 5;
+12. the plugin layer on the card: the non-regression corpus of every
+   ``DEFAULT_PROFILES`` entry plus ``example`` k=8,m=1, created on the host
+   with the numpy backend and checked with ``cuda`` (0 failures); LRC
+   k=4,m=2,l=3 on a 64 MiB object: encode, the local repair of every
+   single chunk from 3 reads, and a 2-erasure read through the global
+   layer, each equal to a numpy-backend codec, with B1's launches, and a
+   torch.profiler breakdown of one LRC encode.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any mismatch, missing GPU, failed build
@@ -74,6 +96,10 @@ import torch
 #: the dense int8 tensor rate that bounds the bit-matrix formulation
 H100_HBM_BYTES_PER_S = 3.35e12
 H100_INT8_OPS_PER_S = 1979e12
+#: two-input int32 operations (XOR) per second: Hopper runs 64 int32
+#: lanes per SM and clock, half its float32 lanes, so a quarter of the
+#: published 67e12 float32 FMA flop rate (two flops per FMA)
+H100_INT32_OPS_PER_S = 67e12 / 4
 
 K, M = 8, 3
 OBJECT_BYTES = 1 << 20
@@ -91,6 +117,8 @@ CLAY_SUB = 1 << 18                 # L: bytes per sub-chunk on the main path
 CLAY_OBJECT = 8 * 64 * CLAY_SUB    # one 128 MiB object, 16 MiB per chunk
 CLAY_EC_OBJECTS = 8                # ec_util leg: 8 objects of 1 MiB
 CLAY_WINDOW = 64                   # lanes checked against the host oracle
+STRIP_CHECK_B = (1, 3, 64, 4097)   # B6 checks: blocks of 128 words a strip
+LRC_OBJECT = 64 << 20              # LRC k=4,m=2,l=3: 4 chunks of 16 MiB
 
 
 def emit(obj) -> None:
@@ -482,6 +510,221 @@ def clay_phases(dev, hbm, smi) -> list:
             for name, key, src, ref, err, m in rows]
 
 
+# -- the XOR-strip codec (kernel B6) ----------------------------------------
+
+def _strip_matrices(rng) -> dict:
+    """B6's check matrices: ISA encode m=1..3, jerasure reed_sol_van and
+    cauchy_good at k=8, m=3, decode e=1..3, and the largest it takes."""
+    from ceph_tpu_torch.models import jerasure
+    from ceph_tpu_torch.ops import gf256, gf_xor_cuda
+    gen = gf256.systematic_generator(gf256.rs_matrix_isa(K, M))
+    mats = {f"isa m={mm}": gf256.rs_matrix_isa(K, mm) for mm in (1, 2, 3)}
+    mats["reed_sol_van"] = gf256.rs_vandermonde_matrix(K, M)
+    mats["cauchy_good"] = jerasure.improve_cauchy_matrix(
+        gf256.cauchy_original_matrix(K, M))
+    for e in (1, 2, 3):
+        mats[f"decode e={e}"] = gf256.decode_matrix(
+            gen, list(range(e, e + K)), list(range(e)))
+    mats["random 32x128"] = rng.integers(
+        0, 256, (gf_xor_cuda.MAX_M_OUT, gf_xor_cuda.MAX_K_IN), dtype=np.uint8)
+    return mats
+
+
+def strip_kernel_checks(dev, gen, rng) -> int:
+    """Phase 9: B6 against its plain version on the card, byte-exact, and
+    once against the host oracle."""
+    from ceph_tpu_torch.ops import gf256, gf_xor, gf_xor_torch
+    err_max, cases = 0, 0
+    for label, mat in _strip_matrices(rng).items():
+        kern = gf_xor.get_kernel(mat, dev)
+        for b in STRIP_CHECK_B if mat.shape[1] == K else (1, 3):
+            x = torch.randint(0, 256, (8 * kern.k_in, b * 512),
+                              dtype=torch.uint8, device=dev, generator=gen)
+            x = x.view(torch.int32).view(8 * kern.k_in, b, 128)
+            got = kern.encode_strips(x)
+            torch.cuda.synchronize()
+            err = max_err(got, gf_xor_torch.xor_strips(kern.schedule, x))
+            check(err == 0, f"B6 {label} B={b} differs from plain")
+            err_max, cases = max(err_max, err), cases + 1
+    isa = gf256.rs_matrix_isa(K, M)
+    small = rng.integers(0, 256, (K, 3 * 4096), dtype=np.uint8)
+    check(np.array_equal(gf_xor.get_kernel(isa, dev)(small),
+                         gf_xor.strip_matvec_reference(isa, small)),
+          "B6 vs host oracle")
+    emit({"phase": "strip_kernels", "cases": cases, "blocks": STRIP_CHECK_B,
+          "max_abs_err": err_max, "tolerance": 0})
+    return err_max
+
+
+def strip_main_path(dev, data_shards: np.ndarray) -> dict:
+    """Phase 10: the XOR-strip codec at ISA reed_sol_van k=8, m=3 on the
+    128 MiB batch of the RS flush (8 chunks of 16 MiB): the host-boundary
+    encode, degraded reads of every erasure pattern of 1 to 3 chunks that
+    loses data chunk 0, and the resident encode, with launch counts."""
+    import itertools
+
+    from ceph_tpu_torch.ops import gf256, gf_xor, gf_xor_cuda
+    isa = gf256.rs_matrix_isa(K, M)
+    gen = gf256.systematic_generator(isa)
+    kern = gf_xor.get_kernel(isa, dev)
+    walls = {}
+    gf_xor_cuda.reset_launches()
+    t0 = time.perf_counter()
+    parity = kern(data_shards)
+    walls["encode_host_boundary_s"] = time.perf_counter() - t0
+    data = gf_xor.to_strips(torch.from_numpy(data_shards).to(dev))
+    whole = torch.cat([data, gf_xor.to_strips(
+        torch.from_numpy(parity).to(dev))]).view(K + M, 8, *data.shape[1:])
+    patterns = [lost for e in (1, 2, 3)
+                for lost in itertools.combinations(range(K + M), e)
+                if 0 in lost]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lost in patterns:
+        present = [i for i in range(K + M) if i not in lost][:K]
+        dmat = gf256.decode_matrix(gen, present, list(lost))
+        surv = whole[present].reshape(8 * K, *data.shape[1:])
+        rec = gf_xor.get_kernel(dmat, dev).encode_strips(surv)
+        check(torch.equal(rec, whole[list(lost)].reshape(rec.shape)),
+              f"strip degraded read with {lost} lost")
+    walls["degraded_reads_s"] = time.perf_counter() - t0
+    resident = kern.encode_strips(data)
+    torch.cuda.synchronize()
+    launches = gf_xor_cuda.launches
+    check(launches > 0, "B6 never launched on the strip path")
+
+    # checks after the counts were read
+    check(data.shape == (8 * K, RESIDENT_LANES // 4096, 128),
+          f"strip shape {tuple(data.shape)}")
+    check(np.array_equal(parity, gf_xor.strip_matvec_reference(
+        isa, data_shards)), "strip parity vs host oracle")
+    check(torch.equal(gf_xor.from_strips(resident).cpu(),
+                      torch.from_numpy(parity)), "resident vs host boundary")
+    emit(flush_profile(lambda: kern(data_shards), "strip_encode_profile"))
+    emit({"phase": "strip_main_path", "profile": "isa reed_sol_van k=8 m=3",
+          "batch_bytes": int(data_shards.size), "strips_in": list(data.shape),
+          "strips_out": list(resident.shape), "patterns": len(patterns),
+          "launches": {"gf_xor": launches}, "wall_s": walls, "ok": True})
+    return {"data": data, "whole": whole, "gen": gen, "launches": launches}
+
+
+def strip_times(dev, hbm, smi, st, b1_encode_ms: float) -> dict:
+    """Phase 11: B6 encode and decode e=1..3 on the resident strips, each
+    beside its bytes bound, its XOR-count bound and its plain version,
+    with B1's encode time at the same bytes (phase 5)."""
+    from ceph_tpu_torch.bench.ec_bench import time_cuda
+    from ceph_tpu_torch.ops import gf256, gf_xor, gf_xor_torch
+    data, whole, gen = st["data"], st["whole"], st["gen"]
+    words = data.shape[1] * 128
+    cases = {"encode": (gf256.rs_matrix_isa(K, M), data)}
+    for e in (1, 2, 3):
+        present = list(range(e, e + K))
+        cases[f"decode e={e}"] = (
+            gf256.decode_matrix(gen, present, list(range(e))),
+            whole[present].reshape(8 * K, *data.shape[1:]))
+    out = {}
+    for label, (mat, x) in cases.items():
+        kern = gf_xor.get_kernel(mat, dev)
+        rows = len(kern.schedule)
+        xors = sum(len(t) for t in kern.schedule) - rows
+        t_bytes = (8 * K + rows) * words * 4 / hbm
+        t_ops = xors * words / H100_INT32_OPS_PER_S
+        ms = time_cuda(lambda: kern.encode_strips(x), 20) * 1e3
+        out[label] = {
+            "ms": ms, "GBps_in": 8 * K * words * 4 / ms / 1e6,
+            "plain_ms": time_cuda(
+                lambda: gf_xor_torch.xor_strips(kern.schedule, x), 1,
+                3) * 1e3,
+            "bytes_bound_ms": t_bytes * 1e3, "xor_bound_ms": t_ops * 1e3,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "xors_per_word": xors, "rows_out": rows}
+    emit({"phase": "strip_times", "card": smi, "strips_in": list(data.shape),
+          "b6": out, "b1_encode_ms_same_bytes": b1_encode_ms,
+          "int32_ops_per_s": H100_INT32_OPS_PER_S})
+    return out
+
+
+def plugin_phases(dev) -> dict:
+    """Phase 12: the codec layer on the card. The non-regression corpus
+    for every DEFAULT_PROFILES entry plus example k=8,m=1, created on the
+    host with the numpy backend and checked with the cuda backend; LRC
+    k=4, m=2, l=3 on a 64 MiB object: encode, every single-chunk local
+    repair and one 2-erasure read through the global layer, each equal
+    to a numpy-backend codec's bytes."""
+    import tempfile
+
+    from ceph_tpu_torch.models import instance
+    from ceph_tpu_torch.ops import clay_cuda, gf_block_sparse_cuda, gf_cuda
+    from ceph_tpu_torch.tools import ec_non_regression as nr
+
+    profiles = nr.DEFAULT_PROFILES + [("example", {"k": "8", "m": "1"})]
+    failures, walls = [], {}
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as base:
+        dirs = [nr.create_one(base, plugin, prof, "numpy", device="cpu")
+                for plugin, prof in profiles]
+        gf_cuda.reset_launches()
+        clay_cuda.reset_launches()
+        gf_block_sparse_cuda.reset_launches()
+        t0 = time.perf_counter()
+        for d in dirs:
+            failures += nr.check_one(d, "cuda", device=dev)
+        walls["corpus_check_s"] = time.perf_counter() - t0
+    corpus_launches = {"gf_matvec": gf_cuda.launches,
+                       "clay_encode": clay_cuda.encode_launches,
+                       "gf_block_sparse": gf_block_sparse_cuda.launches}
+    check(not failures, f"corpus check on cuda: {failures[:5]}")
+    check(corpus_launches["gf_matvec"] > 0, "corpus check never ran B1")
+
+    kml = {"k": "4", "m": "2", "l": "3"}
+    rng = np.random.default_rng(SEED + 3)
+    obj = rng.integers(0, 256, LRC_OBJECT, dtype=np.uint8)
+    host = instance().factory("lrc", dict(kml, backend="numpy"),
+                              device="cpu")
+    want = host.encode(list(range(8)), obj)
+    codec = instance().factory("lrc", kml, device=dev)
+    cs = codec.get_chunk_size(LRC_OBJECT)
+    gf_cuda.reset_launches()
+    t0 = time.perf_counter()
+    got = codec.encode(list(range(8)), obj)
+    walls["lrc_encode_s"] = time.perf_counter() - t0
+    reads = {}
+    t0 = time.perf_counter()
+    for lost in range(8):
+        plan = codec.minimum_to_decode([lost], [i for i in range(8)
+                                                if i != lost])
+        reads[lost] = sorted(plan)
+        out = codec.decode([lost], {i: got[i] for i in plan}, cs)
+        check(len(plan) == 3 and np.array_equal(out[lost], want[lost]),
+              f"lrc local repair of chunk {lost} (plan {sorted(plan)})")
+    walls["lrc_local_repairs_s"] = time.perf_counter() - t0
+    lost2 = [0, 1]
+    avail = [i for i in range(8) if i not in lost2]
+    plan2 = codec.minimum_to_decode(lost2, avail)
+    t0 = time.perf_counter()
+    out2 = codec.decode(lost2, {i: got[i] for i in plan2}, cs)
+    walls["lrc_global_read_s"] = time.perf_counter() - t0
+    lrc_launches = gf_cuda.launches
+    check(lrc_launches > 0, "LRC on cuda never launched B1")
+    for i in range(8):
+        check(np.array_equal(got[i], want[i]), f"lrc chunk {i} vs numpy")
+    emit(flush_profile(lambda: codec.encode(list(range(8)), obj),
+                       "lrc_encode_profile"))
+    ref2 = host.decode(lost2, {i: want[i] for i in plan2}, cs)
+    for i in lost2:
+        check(np.array_equal(out2[i], want[i]) and
+              np.array_equal(ref2[i], want[i]), f"lrc global read of {i}")
+    emit({"phase": "plugins", "corpus_profiles": len(dirs),
+          "corpus_failures": len(failures), "corpus_launches": corpus_launches,
+          "lrc_profile": kml, "lrc_object_bytes": LRC_OBJECT,
+          "lrc_chunk_size": cs, "lrc_local_plans": reads,
+          "lrc_global_plan": sorted(plan2), "lrc_launches": lrc_launches,
+          "wall_s": walls, "ok": True})
+    return {"corpus_launches": corpus_launches, "lrc_launches": lrc_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no GPU",
@@ -512,7 +755,8 @@ def main() -> int:
     # -- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
     logs = cuda_build.build_all(["gf_matvec", "crc32c_rows", "clay_encode",
-                                 "clay_transform", "gf_block_sparse"])
+                                 "clay_transform", "gf_block_sparse",
+                                 "gf_xor"])
     build_s = time.perf_counter() - t0
     for kname, log in logs.items():
         print(f"--- nvcc {kname} ---\n{log}", file=sys.stderr)
@@ -640,8 +884,13 @@ def main() -> int:
         s = time_cuda(lambda: gf_cuda.matvec_device(mat, data), 20)
         check(torch.equal(gf_cuda.matvec_device(mat, data),
                           gf_torch.matvec(mat, data)), f"B1 {label} resident")
+        t_bytes = (K + mat.shape[0]) * RESIDENT_LANES / hbm
+        t_ops = 2 * 64 * mat.size * RESIDENT_LANES / H100_INT8_OPS_PER_S
         timings[label] = {"ms": s * 1e3,
-                          "GBps": K * RESIDENT_LANES / s / 1e9}
+                          "GBps": K * RESIDENT_LANES / s / 1e9,
+                          "bound_ms": max(t_bytes, t_ops) * 1e3,
+                          "bound_by": "bytes" if t_bytes >= t_ops
+                          else "operations"}
     plain_b1 = time_cuda(lambda: gf_torch.matvec(isa, data), 2, 3)
     n = RESIDENT_LANES
     b1_bound_bytes = (K + M) * n / hbm
@@ -677,6 +926,18 @@ def main() -> int:
     # -- 6-8. Clay -------------------------------------------------------
     clay = clay_phases(dev, hbm, smi)
 
+    # -- 9-11. the XOR-strip codec (B6) ------------------------------------
+    gen_s = torch.Generator(device=dev)
+    gen_s.manual_seed(SEED + 4)
+    b6_err = strip_kernel_checks(dev, gen_s, np.random.default_rng(SEED + 4))
+    st = strip_main_path(dev, data_shards)
+    b6_launches = st["launches"]
+    b6 = strip_times(dev, hbm, smi, st, timings["encode"]["ms"])["encode"]
+    del st
+
+    # -- 12. the plugin layer: corpus and LRC ------------------------------
+    plugin_phases(dev)
+
     # -- 9. summary --------------------------------------------------------
     emit({"kernels": [
         {"name": "gf_matvec (B1)", "route": "cuda",
@@ -697,7 +958,13 @@ def main() -> int:
          "bound_by": "bytes" if b2_bound_bytes >= b2_bound_ops
          else "operations",
          "library_ms": None, "pass": True},
-    ] + clay})
+    ] + clay + [
+        {"name": "gf_xor (B6)", "route": "cuda",
+         "source": "ceph_tpu_torch/csrc/gf_xor.cu",
+         "replaces": "ceph_tpu/ops/gf_xor_pallas.py:50",
+         "launches": b6_launches, "max_abs_err": b6_err, "ms": b6["ms"],
+         "plain_ms": b6["plain_ms"], "bound_ms": b6["bound_ms"],
+         "bound_by": b6["bound_by"], "library_ms": None, "pass": True}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

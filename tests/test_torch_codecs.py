@@ -82,7 +82,7 @@ def test_minimum_to_decode_and_verify_match_reference():
 
 def test_registry_failure_modes_and_profile_checks():
     with pytest.raises(PluginLoadError):
-        instance().factory("lrc", {}, device="cpu")
+        instance().factory("no_such_plugin", {}, device="cpu")
     with pytest.raises(ErasureCodeError):
         instance().factory("isa", {"k": "30", "m": "5"}, device="cpu")
     with pytest.raises(ErasureCodeError):

@@ -7,8 +7,11 @@ CUDA must equal the fused flush on the CPU. Kernels B3 and B4
 (ops/clay_cuda.py) and B5 (ops/gf_block_sparse_cuda.py) must equal their
 plain versions over Clay profiles, ragged L and erasure signatures, a
 matrix larger than B1 takes must take the counted dense route, and the
-Clay codec on CUDA must give the CPU codec's bytes. Every test here needs
-an NVIDIA GPU and skips without one.
+Clay codec on CUDA must give the CPU codec's bytes. Kernel B6
+(ops/gf_xor_cuda.py) must equal its plain version over encode and decode
+matrices, ragged B and the largest matrix it takes, and the host oracle,
+and must refuse what it does not take. Every test here needs an NVIDIA GPU
+and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -22,11 +25,12 @@ import numpy as np
 import pytest
 import torch
 
-from ceph_tpu_torch.models import clay_device, instance
+from ceph_tpu_torch.models import clay_device, instance, jerasure
 from ceph_tpu_torch.ops import (backend, clay_cuda, crc32c_cuda,
                                 crc32c_torch, gf256, gf_block_sparse,
                                 gf_block_sparse_cuda, gf_block_sparse_torch,
-                                gf_cuda, gf_torch)
+                                gf_cuda, gf_torch, gf_xor, gf_xor_cuda,
+                                gf_xor_torch)
 from ceph_tpu_torch.osd import ec_util
 
 pytestmark = pytest.mark.cuda
@@ -224,3 +228,68 @@ def test_clay_codec_on_cuda_matches_cpu(cuda, monkeypatch, extra, env):
     helpers = {c: np.concatenate([want[c][o * sc:(o + cnt) * sc]
                                   for o, cnt in r]) for c, r in plan.items()}
     assert np.array_equal(on_card.decode([0], helpers, cs)[0], want[0])
+
+
+def _strip_matrices():
+    k, m = 8, 3
+    gen = gf256.systematic_generator(gf256.rs_matrix_isa(k, m))
+    mats = {f"isa m={mm}": gf256.rs_matrix_isa(k, mm) for mm in (1, 2, 3)}
+    mats["reed_sol_van"] = gf256.rs_vandermonde_matrix(k, m)
+    mats["cauchy_good"] = jerasure.improve_cauchy_matrix(
+        gf256.cauchy_original_matrix(k, m))
+    for e in (1, 2, 3):
+        mats[f"decode e={e}"] = gf256.decode_matrix(
+            gen, list(range(e, e + k)), list(range(e)))
+    return mats
+
+
+STRIP_MATS = _strip_matrices()
+STRIP_B = (1, 3, 64, 4097)
+
+
+def _strips(seed, rows, b, device):
+    return torch.from_numpy(_bytes(seed, rows, b * 512)).view(
+        torch.int32).view(rows, b, 128).to(device)
+
+
+@pytest.mark.parametrize("label", sorted(STRIP_MATS))
+def test_xor_strip_kernel_matches_plain(cuda, label):
+    kern = gf_xor.get_kernel(STRIP_MATS[label], cuda)
+    gf_xor_cuda.reset_launches()
+    for b in STRIP_B:
+        x = _strips(b, 8 * kern.k_in, b, cuda)
+        got = kern.encode_strips(x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, gf_xor_torch.xor_strips(kern.schedule, x)), b
+    assert gf_xor_cuda.launches == len(STRIP_B)
+
+
+def test_xor_strip_kernel_largest_matrix_and_host_oracle(cuda):
+    mat = _bytes(7, gf_xor_cuda.MAX_M_OUT, gf_xor_cuda.MAX_K_IN)
+    kern = gf_xor.get_kernel(mat, cuda)
+    for b in (1, 3):
+        x = _strips(b, 8 * kern.k_in, b, cuda)
+        assert torch.equal(kern.encode_strips(x),
+                           gf_xor_torch.xor_strips(kern.schedule, x)), b
+    isa = STRIP_MATS["isa m=3"]
+    data = _bytes(8, 8, 3 * 4096)
+    assert np.array_equal(gf_xor.get_kernel(isa, cuda)(data),
+                          gf_xor.strip_matvec_reference(isa, data))
+
+
+def test_xor_strip_kernel_rejects_what_it_does_not_take(cuda):
+    kern = gf_xor.get_kernel(STRIP_MATS["isa m=3"], cuda)
+    x = _strips(1, 64, 4, cuda)
+    with pytest.raises(ValueError):
+        kern.encode_strips(x[:, :, :127])
+    with pytest.raises(ValueError):
+        kern.encode_strips(torch.zeros(64 * 512 + 1, dtype=torch.int32,
+                                       device=cuda)[1:].view(64, 4, 128))
+    with pytest.raises(ValueError):
+        kern.encode_strips(x.to(torch.int64))
+    with pytest.raises(ValueError):
+        kern.encode_strips(x.transpose(1, 2).contiguous().transpose(1, 2))
+    big = gf_xor.get_kernel(np.ones((1, gf_xor_cuda.MAX_K_IN + 1), np.uint8),
+                            cuda)
+    with pytest.raises(ValueError):
+        big.encode_strips(_strips(2, 8 * (gf_xor_cuda.MAX_K_IN + 1), 1, cuda))

@@ -48,7 +48,13 @@ def test_scan_covers_the_port():
                  "ceph_tpu_torch/models/clay_device.py",
                  "ceph_tpu_torch/models/shec.py",
                  "ceph_tpu_torch/ops/clay_cuda.py",
-                 "ceph_tpu_torch/ops/gf_block_sparse.py"):
+                 "ceph_tpu_torch/ops/gf_block_sparse.py",
+                 "ceph_tpu_torch/ops/gf_xor.py",
+                 "ceph_tpu_torch/ops/gf_xor_cuda.py",
+                 "ceph_tpu_torch/ops/gf_xor_torch.py",
+                 "ceph_tpu_torch/models/lrc.py",
+                 "ceph_tpu_torch/models/example_xor.py",
+                 "ceph_tpu_torch/tools/ec_non_regression.py"):
         assert must in rel
 
 
