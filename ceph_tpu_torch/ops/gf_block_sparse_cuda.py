@@ -1,13 +1,16 @@
-"""Kernel B5 on Hopper: the block-sparse GF(2^8) matvec
+"""Kernel B5 on Hopper: the block-sparse GF(2^8) matvec, bit-sliced
 (csrc/gf_block_sparse.cu).
 
 Replaces ``ceph_tpu/ops/gf_block_sparse.py::_sparse_kernel`` (launched by
-``_build_runner``). One CUDA block per (row group, 4096-lane tile): it
-streams the group's occupied column blocks through shared memory as
-split-nibble tables (4 KiB per [16, 8] block, so any group fits: the
-whole group's tables of up to 320 KiB never have to) and writes each
-output row straight to its un-permuted position. See the source for the
-design and its bound.
+``_build_runner``). No tables: a thread holds 32 lanes as 8 bit planes.
+Per live column of its row group it transposes 32 data bytes into planes,
+forms the multiples x^b * data and XORs each into the rows whose
+coefficient has bit b set; each accumulator row is transposed back and
+written straight to its un-permuted position. One CUDA block per (row
+group, lane tile), the group fastest-varying so a tile's groups share its
+data rows in L2; for short N the block's warps split the columns instead.
+The kernel reads only each live column's data row and 16 coefficient
+bytes (:func:`plan_arrays`). See the source for the design and its bound.
 
 :func:`matvec` takes a plan (ops/gf_block_sparse.py) and a CUDA tensor
 and launches the kernel or raises; for a CPU tensor it runs the plain
@@ -22,10 +25,11 @@ import threading
 import numpy as np
 import torch
 
-from ceph_tpu_torch.ops import cuda_build, gf_block_sparse_torch, gf_cuda
+from ceph_tpu_torch.ops import cuda_build, gf_block_sparse_torch
 from ceph_tpu_torch.ops.gf_block_sparse import BlockPlan
 
-#: largest row group the kernel's register accumulators take
+#: rows of a group in the kernel's register accumulators (the largest
+#: tile_m it takes)
 MAX_TILE_M = 16
 
 #: launches of the CUDA kernel since the last reset (plain runs not counted)
@@ -41,34 +45,41 @@ def reset_launches() -> None:
 
 
 def plan_arrays(plan: BlockPlan) -> dict[str, np.ndarray]:
-    """The plan as the flat arrays the kernel reads:
+    """The plan as the flat arrays the kernel reads. A live column of a
+    group is a data row with at least one nonzero coefficient in the
+    group's rows (columns of an occupied block that are zero throughout
+    the group are dropped). Groups are laid out at 16 rows whatever the
+    plan's ``tile_m``; rows past it are padding.
 
-    - ``grp_off`` [groups + 1] int32: group g owns blocks
-      grp_off[g] .. grp_off[g+1]-1;
-    - ``blk_col`` [blocks] int32: the column-block id of each block;
-    - ``coefs`` [blocks, tile_m, tile_k] uint8: its GF coefficients;
-    - ``tabs`` [blocks, tile_m, tile_k, 32] uint8: their nibble tables;
-    - ``out_row`` [groups * tile_m] int32: output row of each group slot
-      (-1 for the padding rows of the last group).
+    - ``grp_off`` [groups + 1] int32: group g owns live columns
+      grp_off[g] .. grp_off[g+1]-1, in ascending data-row order;
+    - ``col_row`` [cols] int32: the data row of each live column;
+    - ``col_coef`` [cols, 16] uint8: the coefficients of the group's 16
+      rows in that column (one 16-byte load);
+    - ``out_row`` [groups * 16] int32: output row of each group slot (-1
+      for padding rows).
     """
     tm, tk = plan.tile_m, plan.tile_k
-    off, cols, coefs = [0], [], []
+    off, rows, coefs = [0], [], []
     for occ, coef in plan.groups:
-        for bi, b in enumerate(occ):
-            cols.append(int(b))
-            coefs.append(coef[:, bi * tk:(bi + 1) * tk])
-        off.append(len(cols))
-    coefs = np.stack(coefs) if coefs else np.zeros((0, tm, tk), np.uint8)
-    tabs = gf_cuda.nibble_tables(coefs.reshape(-1, tk)).reshape(
-        len(cols), tm, tk, 32) if len(cols) else \
-        np.zeros((0, tm, tk, 32), np.uint8)
-    rows = plan.row_order.astype(np.int32)
+        if coef is not None:
+            live = np.nonzero(coef.any(axis=0))[0]
+            cols = (np.asarray(occ, np.int64)[:, None] * tk +
+                    np.arange(tk)).reshape(-1)[live]
+            rows.extend(cols.tolist())
+            padded = np.zeros((len(live), MAX_TILE_M), np.uint8)
+            padded[:, :tm] = coef[:, live].T
+            coefs.append(padded)
+        off.append(len(rows))
+    order = np.full((len(plan.groups), MAX_TILE_M), plan.m, np.int64)
+    order[:, :tm] = np.asarray(plan.row_order).reshape(-1, tm)
     return {
         "grp_off": np.asarray(off, dtype=np.int32),
-        "blk_col": np.asarray(cols, dtype=np.int32),
-        "coefs": np.ascontiguousarray(coefs, dtype=np.uint8),
-        "tabs": np.ascontiguousarray(tabs, dtype=np.uint8),
-        "out_row": np.where(rows < plan.m, rows, -1).astype(np.int32),
+        "col_row": np.asarray(rows, dtype=np.int32),
+        "col_coef": np.concatenate(coefs) if coefs else
+        np.zeros((0, MAX_TILE_M), np.uint8),
+        "out_row": np.where(order < plan.m, order, -1).astype(np.int32)
+        .reshape(-1),
     }
 
 
@@ -84,10 +95,8 @@ def _device_arrays(plan: BlockPlan, device: torch.device) -> dict:
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load(_NAME)
     fn = lib.gf_block_sparse_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -117,10 +126,9 @@ def matvec(plan: BlockPlan, data: torch.Tensor) -> torch.Tensor:
     stream = torch.cuda.current_stream(data.device).cuda_stream
     with torch.cuda.device(data.device):
         err = lib.gf_block_sparse_launch(
-            arr["grp_off"].data_ptr(), arr["blk_col"].data_ptr(),
-            arr["tabs"].data_ptr(), arr["coefs"].data_ptr(),
-            arr["out_row"].data_ptr(), data.data_ptr(), out.data_ptr(),
-            len(plan.groups), plan.tile_m, plan.tile_k, plan.k, n, vec,
+            arr["grp_off"].data_ptr(), arr["col_row"].data_ptr(),
+            arr["col_coef"].data_ptr(), arr["out_row"].data_ptr(),
+            data.data_ptr(), out.data_ptr(), len(plan.groups), n, vec,
             stream)
     cuda_build.check(lib, err, "gf_block_sparse launch")
     global launches

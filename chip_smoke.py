@@ -31,7 +31,8 @@ Phases, each printing one JSON line:
 6. Clay kernels against their plain versions on the card, byte-exact: B3
    and B4 over k=8,m=4,d=11, k=4,m=2 and k=4,m=3,d=6 (virtual nodes) at
    ragged L, B4 over 1- to 4-erasure signatures, B5 over the k=8,m=4,d=11
-   decode-1, decode-2 and repair matrices and a random 5% matrix;
+   decode-1, decode-2 and repair matrices and a random 5% matrix at
+   ragged N and at every lane count of phases 7-8 (64, 32 Ki, 256 Ki);
 7. Clay main path, the repo's Clay deployment k=8, m=4, d=11 on CUDA, one
    128 MiB object (8 data chunks of 16 MiB, L = 256 KiB per sub-chunk):
    ``codec.encode`` (B3); degraded reads e=1 and e=2 through
@@ -42,11 +43,19 @@ Phases, each printing one JSON line:
    at stripe unit 4096. Every read must equal the data, the parity must
    equal the host layered oracle on a lane window, and kernel outputs
    must equal the plain versions at full size. Launch counts are zeroed
-   before and read after this phase;
+   before and read after this phase, B3's and B5's also by lane count
+   (full size, the 32 Ki-lane calibration sample, the 64-lane ec_util
+   per-stripe calls);
 8. Clay times on the card (CUDA events; warm-up, then the median): B3,
-   B4 and B5 at the main path's shapes, each beside its plain version,
-   its bound and the dense bit-sliced product on the same linearized
-   matrix (the product the calibration compares against), with the
+   B4 and B5 at the main path's shapes (B3 also at the 64-lane
+   per-stripe shape; B5 also at the decode-2 matrix's 32 Ki-lane
+   calibration sample and 64-lane per-stripe shapes), each beside its
+   plain version, its bound and the dense bit-sliced product on the same
+   linearized matrix (the product the calibration compares against); B5
+   held against its plain version at each of those shapes and timed
+   through the entry point (``ms``, the span of the old split-nibble
+   design's ``prev_ms``), through its wrapper and as the profiler's
+   device time of the kernel, beside its XOR-count floor; with the
    calibration's picks and timings, and a torch.profiler breakdown of one
    128 MiB ``codec.encode``;
 9. B6 against its plain version on the card, byte-exact: ISA encode
@@ -113,12 +122,25 @@ SEED = 20261016
 CLAY = {"k": "8", "m": "4", "d": "11"}
 CLAY_PROFILES = [CLAY, {"k": "4", "m": "2"}, {"k": "4", "m": "3", "d": "6"}]
 CLAY_L = (1, 63, 4097, 1 << 18)
+#: B5 is checked also at the lane counts it runs at on the main path
+#: besides full size: 64 (an ec_util per-stripe call) and 32 Ki (the
+#: calibration sample), whole 16-byte words, which its column-slice form
+#: takes on its 16-byte path
+B5_L = (1, 63, 64, 4097, 1 << 15, 1 << 18)
 CLAY_SUB = 1 << 18                 # L: bytes per sub-chunk on the main path
 CLAY_OBJECT = 8 * 64 * CLAY_SUB    # one 128 MiB object, 16 MiB per chunk
 CLAY_EC_OBJECTS = 8                # ec_util leg: 8 objects of 1 MiB
 CLAY_WINDOW = 64                   # lanes checked against the host oracle
 STRIP_CHECK_B = (1, 3, 64, 4097)   # B6 checks: blocks of 128 words a strip
 LRC_OBJECT = 64 << 20              # LRC k=4,m=2,l=3: 4 chunks of 16 MiB
+
+#: B5 times of the split-nibble design the bit-sliced kernel replaced, ms,
+#: from this script's phase 8 on the tree before the redesign (NVIDIA H100
+#: 80GB HBM3, 700.00 W; through the entry point), printed beside the new
+#: times as ``prev_ms``; the 32 Ki-lane sample shape was not timed then
+PREV_B5_MS = {"decode-2": 1.1044447898864747, "decode-1": 0.5856832027435303,
+              "repair": 0.21266560554504396,
+              "decode-2 per-stripe": 0.5138144016265869}
 
 
 def emit(obj) -> None:
@@ -204,6 +226,16 @@ def _bound(nbytes: float, ops: float, hbm: float) -> tuple[float, str]:
         "bytes" if t_bytes >= t_ops else "operations"
 
 
+def block_sparse_work(plan) -> tuple[int, int]:
+    """(live (group, column) pairs, set coefficient bits) of a B5 plan,
+    read from the arrays the kernel reads: it transposes and runs a
+    multiply-by-x chain once per live pair and XORs 8 bit-plane words per
+    set bit."""
+    from ceph_tpu_torch.ops import gf_block_sparse_cuda
+    arr = gf_block_sparse_cuda.plan_arrays(plan)
+    return len(arr["col_row"]), int(np.unpackbits(arr["col_coef"]).sum())
+
+
 def clay_kernel_checks(dev, gen) -> dict:
     """Phase 6: B3, B4 and B5 against their plain versions on the card."""
     from ceph_tpu_torch.models import clay_device, instance
@@ -252,7 +284,7 @@ def clay_kernel_checks(dev, gen) -> dict:
                           (rng.random((128, 640)) < 0.05)).astype(np.uint8)}
     for label, mat in mats.items():
         plan = gf_block_sparse.plan_for(mat)
-        for L in CLAY_L:
+        for L in B5_L:
             x = rand(mat.shape[1], L)
             got = gf_block_sparse.matvec_device(mat, x)
             torch.cuda.synchronize()
@@ -260,16 +292,36 @@ def clay_kernel_checks(dev, gen) -> dict:
             check(err == 0, f"B5 {label} N={L} differs from plain")
             errs["b5"], cases["b5"] = max(errs["b5"], err), cases["b5"] + 1
     emit({"phase": "clay_kernels", "profiles": CLAY_PROFILES,
-          "lanes": CLAY_L, "cases": cases, "max_abs_err": errs,
+          "lanes": CLAY_L, "b5_lanes": B5_L, "cases": cases,
+          "max_abs_err": errs,
           "block_sparse_stats": {label: gf_block_sparse.occupancy_stats(mat)
                                  for label, mat in mats.items()},
           "tolerance": 0})
     return errs
 
 
+def tally_lanes(owner, attr: str, read_count, lanes_of):
+    """Wrap ``owner.attr`` so that every call is tallied by its lane count
+    with the rise of the kernel's own launch counter (``read_count()``)
+    over that call. Returns (tally, undo)."""
+    orig = getattr(owner, attr)
+    tally: dict[int, int] = {}
+
+    def wrapped(*args):
+        before = read_count()
+        out = orig(*args)
+        lanes = lanes_of(*args)
+        tally[lanes] = tally.get(lanes, 0) + read_count() - before
+        return out
+
+    setattr(owner, attr, wrapped)
+    return tally, lambda: setattr(owner, attr, orig)
+
+
 def clay_main_path(dev, rng) -> dict:
     """Phase 7: the Clay k=8, m=4, d=11 codec on CUDA through its entry
-    points, on one 128 MiB object, with launch counts."""
+    points, on one 128 MiB object, with launch counts (also by lane
+    count: full size, calibration sample, ec_util per-stripe call)."""
     from ceph_tpu_torch.models import instance
     from ceph_tpu_torch.ops import (clay_cuda, gf_block_sparse,
                                     gf_block_sparse_cuda,
@@ -301,6 +353,12 @@ def clay_main_path(dev, rng) -> dict:
         for i in lost:
             check(np.array_equal(out[i], enc[i]), f"{label}: chunk {i}")
 
+    b3_lanes, undo_b3 = tally_lanes(
+        clay_cuda.EncodeKernel, "__call__",
+        lambda: clay_cuda.encode_launches, lambda _self, x: x.shape[2])
+    b5_lanes, undo_b5 = tally_lanes(
+        gf_block_sparse_cuda, "matvec", lambda: gf_block_sparse_cuda.launches,
+        lambda _plan, x: x.shape[1])
     clay_cuda.reset_launches()
     gf_block_sparse_cuda.reset_launches()
     gf_cuda.reset_launches()
@@ -344,9 +402,15 @@ def clay_main_path(dev, rng) -> dict:
                 "gf_block_sparse": gf_block_sparse_cuda.launches,
                 "gf_matvec": gf_cuda.launches,
                 "dense_route": gf_torch.dense_calls}
+    undo_b3()
+    undo_b5()
     check(all(launches[k] > 0 for k in
               ("clay_encode", "clay_transform", "gf_block_sparse")),
           f"a Clay kernel never launched on the main path: {launches}")
+    by_lanes = {"clay_encode": b3_lanes, "gf_block_sparse": b5_lanes}
+    for key, tally in by_lanes.items():
+        check(sum(tally.values()) == launches[key],
+              f"{key} launches by lanes {tally} vs {launches[key]}")
 
     # checks after the counts were read: data chunks, host oracle on a
     # lane window, kernels vs plain versions at full size
@@ -393,20 +457,22 @@ def clay_main_path(dev, rng) -> dict:
           "sub_chunk_bytes": CLAY_SUB,
           "repair_read_bytes": sum(len(v) for v in helpers.values()),
           "ec_util_objects": CLAY_EC_OBJECTS, "ec_util_bytes": ec_bytes,
-          "stripe_unit": CHUNK, "launches": launches, "wall_s": walls,
+          "stripe_unit": CHUNK, "launches": launches,
+          "launches_by_lanes": by_lanes, "wall_s": walls,
           "calibration": calib, "ok": True})
     return {"codec": codec, "kcodec": kcodec, "x": x, "c_full": c_full,
             "key": key, "x2": x2, "mat2": mat2, "enc": enc, "data": data,
-            "launches": launches}
+            "launches": launches, "launches_by_lanes": by_lanes}
 
 
 def clay_times(dev, hbm, smi, st) -> dict:
     """Phase 8: B3, B4 and B5 at the main path's shapes: kernel, plain
     version, bound and the dense bit-sliced product (library)."""
+    from ceph_tpu_torch.bench.b5_ab import device_ms
     from ceph_tpu_torch.bench.ec_bench import time_cuda
     from ceph_tpu_torch.models import clay_device
-    from ceph_tpu_torch.ops import gf_block_sparse, gf_block_sparse_torch
-    from ceph_tpu_torch.ops import gf_torch
+    from ceph_tpu_torch.ops import (gf_block_sparse, gf_block_sparse_cuda,
+                                    gf_block_sparse_torch, gf_torch)
 
     codec, kcodec, ssc, L = st["codec"], st["kcodec"], 64, CLAY_SUB
     out = {}
@@ -430,6 +496,13 @@ def clay_times(dev, hbm, smi, st) -> dict:
                      lambda: gf_torch.matvec(enc_mat, xs), 1, 3) * 1e3,
                  "bound_ms": bound, "bound_by": by, "gf_muls_per_lane": muls,
                  "shape": [8 * ssc, L]}
+    # the ec_util leg's shape: one stripe of 4096 B per chunk, 64 lanes
+    xp = x[:, :, :CHUNK // ssc].contiguous()
+    bound, by = _bound(12 * CHUNK, 128 * muls * xp.shape[2], hbm)
+    out["b3"]["per_stripe"] = {
+        "lanes": xp.shape[2], "ms": time_cuda(lambda: enc_fn(xp), 10) * 1e3,
+        "plain_ms": time_cuda(lambda: enc_fn.plain(xp), 1, 3) * 1e3,
+        "bound_ms": bound, "bound_by": by}
     # B4: the e=2 signature, padded to 4 erased nodes
     key, c_full = st["key"], st["c_full"]
     tfn = kcodec._lin_cache[("ker", key)]
@@ -463,22 +536,44 @@ def clay_times(dev, hbm, smi, st) -> dict:
     matr = codec._lin_cache[("rep", 0, helpers)]
     mats["repair"] = (matr, torch.randint(
         0, 256, (matr.shape[1], L), dtype=torch.uint8, device=dev))
+    # the calibration sample's lane count (clay_device.build_decode_matvec)
+    # and the ec_util leg's: one stripe of 4096 B per chunk, 64 lanes
+    mats["decode-2 sample"] = (mat2, x2[:, :1 << 15].contiguous())
+    mats["decode-2 per-stripe"] = (mat2, x2[:, :CHUNK // ssc].contiguous())
     out["b5"] = {}
     for label, (mat, xm) in mats.items():
         plan = gf_block_sparse.plan_for(mat)
+        lanes = xm.shape[1]
         nnz = int((mat != 0).sum())
         rows_in = int((mat != 0).any(axis=0).sum())
-        bound, by = _bound((rows_in + mat.shape[0]) * L, 128 * nnz * L, hbm)
+        bound, by = _bound((rows_in + mat.shape[0]) * lanes,
+                           128 * nnz * lanes, hbm)
+        live, bits = block_sparse_work(plan)
+        check(torch.equal(gf_block_sparse_cuda.matvec(plan, xm),
+                          gf_block_sparse_torch.matvec(plan, xm)),
+              f"B5 {label} differs from plain")
+        # through the entry point (the span PREV_B5_MS was taken on: the
+        # plan-cache lookup on the matrix bytes, then the wrapper), the
+        # wrapper alone, and the profiler's device time of the kernel
         ms = time_cuda(lambda: gf_block_sparse.matvec_device(mat, xm),
                        10) * 1e3
         out["b5"][label] = {
-            "ms": ms, "GBps": mat.shape[1] * L / ms / 1e6,
+            "ms": ms, "prev_ms": PREV_B5_MS.get(label),
+            "wrapper_ms": time_cuda(
+                lambda: gf_block_sparse_cuda.matvec(plan, xm), 10) * 1e3,
+            "device_ms": device_ms(
+                lambda: gf_block_sparse_cuda.matvec(plan, xm)),
+            "GBps": mat.shape[1] * lanes / ms / 1e6,
             "plain_ms": time_cuda(
                 lambda: gf_block_sparse_torch.matvec(plan, xm), 1, 3) * 1e3,
             "library_ms": time_cuda(
                 lambda: gf_torch.matvec(mat, xm), 1, 3) * 1e3,
-            "bound_ms": bound, "bound_by": by, "shape": list(mat.shape),
-            "nonzeros": nnz, "cost_frac": plan.cost_frac}
+            "bound_ms": bound, "bound_by": by,
+            "xor_bound_ms": (8 * bits + 21 * live) * lanes / 32
+            / H100_INT32_OPS_PER_S * 1e3,
+            "shape": list(mat.shape), "lanes": lanes, "nonzeros": nnz,
+            "live_pairs": live, "coef_bits": bits,
+            "cost_frac": plan.cost_frac}
     data = st["data"]
     emit(flush_profile(lambda: codec.encode(list(range(12)), data),
                        "clay_encode_profile"))
@@ -493,7 +588,7 @@ def clay_phases(dev, hbm, smi) -> list:
     errs = clay_kernel_checks(dev, gen)
     st = clay_main_path(dev, np.random.default_rng(SEED + 2))
     t = clay_times(dev, hbm, smi, st)
-    launches = st["launches"]
+    launches, by_lanes = st["launches"], st["launches_by_lanes"]
     b5 = t["b5"]["decode-2"]
     rows = [("clay_encode (B3)", "clay_encode", "clay_encode.cu",
              "ceph_tpu/models/clay_device.py:724", errs["b3"], t["b3"]),
@@ -506,7 +601,9 @@ def clay_phases(dev, hbm, smi) -> list:
              "launches": launches[key], "max_abs_err": err, "ms": m["ms"],
              "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
              "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-             "pass": True}
+             "pass": True,
+             **({"launches_by_lanes": by_lanes[key]} if key in by_lanes
+                else {})}
             for name, key, src, ref, err, m in rows]
 
 

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from ceph_tpu.models import instance as ref_instance
+from ceph_tpu.ops import gf256 as ref_gf256
 from ceph_tpu.ops import gf_block_sparse as ref_bs
 from ceph_tpu.ops.gf_pallas import _permute_bitmatrix
 from ceph_tpu_torch.ops import gf256
@@ -141,44 +142,171 @@ def test_plain_b5_every_signature_small_profile(d):
             _assert_decode_equal(c, full, size, lost)
 
 
-def _emulate_kernel(arr, tm, tk, k, data):
+#: the kernel's transpose: (shift, mask, word pairs) per stage
+_STAGES = ((4, 0x0F0F0F0F, ((0, 4), (1, 5), (2, 6), (3, 7))),
+           (2, 0x33333333, ((0, 2), (1, 3), (4, 6), (5, 7))),
+           (1, 0x55555555, ((0, 1), (2, 3), (4, 5), (6, 7))))
+
+
+def _transpose8(w):
+    """The CUDA kernel's 12 masked swaps over 8 uint32 arrays."""
+    w = list(w)
+    for s, mask, pairs in _STAGES:
+        for a, b in pairs:
+            t = ((w[a] >> s) ^ w[b]) & np.uint32(mask)
+            w[b] = w[b] ^ t
+            w[a] = w[a] ^ (t << s)
+    return w
+
+
+def _xtime(p):
+    """Planes times x modulo 0x11D."""
+    h = p[7]
+    return [h, p[0], p[1] ^ h, p[2] ^ h, p[3] ^ h, p[4], p[5], p[6]]
+
+
+def _to_words(rows):
+    """[R, N] bytes -> [R, threads, 8] uint32 words, 32 lanes a thread,
+    lanes past N zero (as the kernel loads them)."""
+    r, n = rows.shape
+    threads = -(-n // 32)
+    padded = np.zeros((r, threads * 32), dtype=np.uint8)
+    padded[:, :n] = rows
+    return padded.view("<u4").reshape(r, threads, 8)
+
+
+def _from_words(w, n):
+    """8 uint32 arrays [threads] -> the first n bytes they hold."""
+    return np.stack(w, axis=1).astype("<u4").view(np.uint8).reshape(-1)[:n]
+
+
+def _multiples(p):
+    """x^b * planes for b = 0..7 (the kernel's ``mb``)."""
+    mb = [p]
+    for _ in range(7):
+        mb.append(_xtime(mb[-1]))
+    return mb
+
+
+def _mul_add(acc, cf, p):
+    """The kernel's ``mul_add``: acc[r] ^= cf[r] * p for 16 coefficient
+    bytes, rows tested four at a time (one uint32 word), then one by one,
+    then bit by bit."""
+    mb = _multiples(p)
+    cw = np.ascontiguousarray(cf).view("<u4")
+    for q in range(4):
+        if cw[q]:
+            for j in range(4):
+                c = (int(cw[q]) >> (8 * j)) & 0xFF
+                for b in range(8):
+                    if c >> b & 1:
+                        acc[4 * q + j] = [a ^ x for a, x in
+                                          zip(acc[4 * q + j], mb[b])]
+
+
+def _emulate_kernel(arr, data, slices=1):
     """The CUDA kernel's loop (csrc/gf_block_sparse.cu) over its flat
-    plan arrays, in numpy: per group, per occupied block, per column,
-    nibble-table lookups into tm accumulator rows; each row written to
-    out_row once."""
+    plan arrays, in numpy, all threads at once: per group, slice s takes
+    every slices-th live column from the s-th; per column, transpose the
+    thread's 32 bytes into bit planes and multiply-add them into the 16
+    accumulator rows; the slices' accumulators are XORed together and
+    each row is transposed back and written to out_row once."""
     n = data.shape[1]
+    words = _to_words(data)
+    threads = words.shape[1]
     out = np.full((arr["out_row"].max() + 1, n), 0xAA, dtype=np.uint8)
-    lo, hi = data & 15, data >> 4
-    for g in range(len(arr["grp_off"]) - 1):
-        acc = np.zeros((tm, n), dtype=np.uint8)
-        for b in range(arr["grp_off"][g], arr["grp_off"][g + 1]):
-            c0 = arr["blk_col"][b] * tk
-            for c in range(tk):
-                if c0 + c >= k:
-                    break
-                for r in range(tm):
-                    if arr["coefs"][b, r, c]:
-                        t = arr["tabs"][b, r, c]
-                        acc[r] ^= t[lo[c0 + c]] ^ t[16 + hi[c0 + c]]
-        for r in range(tm):
-            orow = arr["out_row"][g * tm + r]
+    off = arr["grp_off"]
+    for g in range(len(off) - 1):
+        parts = []
+        for s in range(slices):
+            acc = [[np.zeros(threads, np.uint32)] * 8 for _ in range(16)]
+            for c in range(off[g] + s, off[g + 1], slices):
+                p = _transpose8([words[arr["col_row"][c], :, q]
+                                 for q in range(8)])
+                _mul_add(acc, arr["col_coef"][c], p)
+            parts.append(acc)
+        for r in range(16):
+            orow = arr["out_row"][g * 16 + r]
             if orow >= 0:
-                out[orow] = acc[r]
+                w = parts[0][r]
+                for acc in parts[1:]:
+                    w = [a ^ x for a, x in zip(w, acc[r])]
+                out[orow] = _from_words(_transpose8(w), n)
     return out
+
+
+def _replay(mat, n, seed, slices=1, tile_m=bs.TILE_M):
+    plan = bs.plan_blocks(mat, tile_m)
+    arr = gf_block_sparse_cuda.plan_arrays(plan)
+    assert arr["grp_off"][-1] == len(arr["col_row"]) == len(arr["col_coef"])
+    # only live columns: each has a nonzero coefficient in its group
+    assert arr["col_coef"].any(axis=1).all()
+    assert arr["col_coef"].dtype == np.uint8 and \
+        arr["col_coef"].shape[1:] == (16,)
+    assert arr["out_row"].shape == (16 * len(plan.groups),)
+    assert sorted(arr["out_row"][arr["out_row"] >= 0]) == \
+        list(range(mat.shape[0]))
+    data = np.random.default_rng(seed).integers(
+        0, 256, size=(mat.shape[1], n), dtype=np.uint8)
+    got = _emulate_kernel(arr, data, slices)
+    assert np.array_equal(got, gf256.gf_matvec_chunks(mat, data))
 
 
 @pytest.mark.parametrize("shape,density", [((128, 640), 0.05),
                                            ((24, 33), 0.3), ((8, 16), 0.0)])
 def test_kernel_plan_arrays_replay_to_the_product(shape, density):
-    mat = _random(shape, density, 3 * sum(shape))
-    plan = bs.plan_blocks(mat)
-    arr = gf_block_sparse_cuda.plan_arrays(plan)
-    assert arr["grp_off"][-1] == len(arr["blk_col"]) == \
-        sum(len(occ) for occ, _ in plan.groups)
-    data = np.random.default_rng(5).integers(
-        0, 256, size=(shape[1], 97), dtype=np.uint8)
-    got = _emulate_kernel(arr, plan.tile_m, plan.tile_k, plan.k, data)
-    assert np.array_equal(got, gf256.gf_matvec_chunks(mat, data))
+    _replay(_random(shape, density, 3 * sum(shape)), 97, 5)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 64])
+def test_kernel_replay_ragged_tails(n):
+    """Lanes past N load as zero and are never stored; N = 64 is the
+    ec_util per-stripe shape, which the kernel runs in 4 column slices."""
+    _replay(_clay_matrices()["decode-1"], n, n, slices=4 if n == 64 else 1)
+
+
+@pytest.mark.parametrize("slices", [1, 4])
+def test_kernel_replay_column_slices_and_short_groups(slices):
+    """Both launch forms, on a plan of 8-row groups (padded to the
+    kernel's 16 rows) as well as 16."""
+    mat = _random((40, 96), 0.2, 11)
+    _replay(mat, 70, 12, slices)
+    _replay(mat, 70, 13, slices, tile_m=8)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_transpose_is_an_involution_mapping_lane_4q_s_to_bit_8s_q(seed):
+    rows = np.random.default_rng(seed).integers(0, 256, size=(1, 32 * 5),
+                                                dtype=np.uint8)
+    words = _to_words(rows)[0]
+    w = [words[:, q] for q in range(8)]
+    planes = _transpose8(w)
+    back = _transpose8(planes)
+    assert all(np.array_equal(a, b) for a, b in zip(back, w))
+    lanes = rows.reshape(5, 32)
+    for i in range(8):
+        for q in range(8):
+            for s in range(4):
+                assert np.array_equal((planes[i] >> (8 * s + q)) & 1,
+                                      (lanes[:, 4 * q + s] >> i) & 1)
+
+
+@pytest.mark.parametrize("high", range(16))
+def test_bit_chain_multiply_equals_gf256(high):
+    """The kernel's multiply (multiples x^b * data, XORed in for each set
+    bit of the coefficient): 16 coefficients a case, all 256 over the
+    cases, each in every row slot, against every byte value."""
+    data = np.arange(256, dtype=np.uint8)[None, :]
+    planes = _transpose8(list(np.moveaxis(_to_words(data)[0], 1, 0)))
+    coefs = np.arange(16 * high, 16 * high + 16, dtype=np.uint8)
+    for shift in range(16):
+        cf = np.roll(coefs, shift)
+        acc = [[np.zeros_like(planes[0])] * 8 for _ in range(16)]
+        _mul_add(acc, cf, planes)
+        for r in range(16):
+            got = _from_words(_transpose8(acc[r]), 256)
+            assert np.array_equal(got, ref_gf256.gf_mul(cf[r], data[0])), \
+                (cf[r], r)
 
 
 def test_matvec_runs_the_plain_version_for_cpu_tensors():

@@ -182,15 +182,23 @@ def test_block_sparse_kernel_matches_plain(cuda):
             (rng.integers(0, 256, (128, 640)) *
              (rng.random((128, 640)) < 0.05)).astype(np.uint8),
             np.zeros((8, 16), np.uint8)]
+    lanes = (1, 15, 16, 31, 33, 64, 4097, 32768)
     gf_block_sparse_cuda.reset_launches()
     for mat in mats:
         plan = gf_block_sparse.plan_for(mat)
-        for n in (1, 15, 16, 4097):
+        for n in lanes:
             d = torch.from_numpy(_bytes(n, mat.shape[1], n)).to(cuda)
             got = gf_block_sparse.matvec_device(mat, d)
             torch.cuda.synchronize()
             assert torch.equal(got, gf_block_sparse_torch.matvec(plan, d))
-    assert gf_block_sparse_cuda.launches == 4 * len(mats)
+        # a data pointer off 16-byte alignment takes the byte path
+        k = mat.shape[1]
+        buf = torch.from_numpy(_bytes(7, k * 4096 + 1)).to(cuda)
+        d = buf[1:].view(k, 4096)
+        got = gf_block_sparse.matvec_device(mat, d)
+        torch.cuda.synchronize()
+        assert torch.equal(got, gf_block_sparse_torch.matvec(plan, d))
+    assert gf_block_sparse_cuda.launches == (len(lanes) + 1) * len(mats)
 
 
 def test_backend_shape_route_is_counted(cuda):
