@@ -83,18 +83,25 @@ def sass_mix(so: Path) -> dict[str, dict[str, int]]:
     return {fn: dict(c.most_common(10)) for fn, c in mix.items()}
 
 
-def device_ms(fn, calls: int = 10) -> float:
-    """torch.profiler's device time of B5's kernel per call of ``fn``."""
+def device_ms(fn, calls: int = 10,
+              kernel: str = "gf_block_sparse_kernel") -> float:
+    """torch.profiler's device time per call of ``fn`` of the kernels whose
+    name contains ``kernel`` (default B5's). A profiling session that
+    records none of them (the profiler on the card has been seen to
+    return an empty session) is repeated, twice at most; then it raises."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if "gf_block_sparse_kernel" in e.key)
-    return us / 1e3 / calls
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if kernel in e.key)
+        if us > 0:
+            return us / 1e3 / calls
+    raise RuntimeError(f"torch.profiler recorded no {kernel} launch")
 
 
 def main(argv: list[str]) -> int:

@@ -5,8 +5,11 @@
 - B3 replaces ``ceph_tpu/models/clay_device.py::build_encode_kernel``
   (inner ``kernel``): the TPU kernel routes (node, plane) rows with 0/1
   bf16 matmuls and multiplies by per-row coefficients with bit-plane
-  select chains; here a thread gathers the rows by index and multiplies
-  packed bytes by a constant with shift-and-xor.
+  select chains; here a thread gathers rows by index, holds 32 lanes as
+  8 bit planes and multiplies by a constant along the multiply-by-x
+  chain, branch-free. :func:`launch_plan` picks its form from L and the
+  SM count: a full form over (plane, lane group) and, where that grid
+  would leave SMs idle, a short form over (plane, lane group, MDS term).
 - B4 replaces ``ceph_tpu/models/clay_device.py::build_transform_kernel``
   (inner ``kernel``): same translation, with the two state arrays (C and
   U) of a narrow lane tile in shared memory and the levels as CSR row
@@ -22,7 +25,9 @@ models/clay_device.py run the plain versions for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ceph_tpu_torch.ops import cuda_build
@@ -33,6 +38,17 @@ transform_launches = 0
 
 #: shared memory a block may use (H100: 227 KiB)
 MAX_SMEM = 227 * 1024
+
+#: B3's launch forms (csrc/clay_encode.cu): the full form's block size and
+#: most lane groups of 32 per tile, its u_p budget per block (two blocks
+#: an SM), the short form's lane groups and most threads, and the most
+#: MDS coefficients the kernel's parameters carry
+FULL_THREADS = 256
+FULL_GROUPS = 8
+_ENCODE_SMEM = 100 * 1024
+SHORT_GROUPS = 2
+SHORT_THREADS = 1024
+MAX_DMAT = 1024
 
 #: B4's state budget per block: below MAX_SMEM so two blocks fit an SM
 _TRANSFORM_SMEM = 100 * 1024
@@ -57,13 +73,22 @@ def _check_input(x: torch.Tensor, rows: int, what: str) -> None:
         raise ValueError(f"{what}: input must be contiguous")
 
 
-def _encode_lib() -> ctypes.CDLL:
-    lib = cuda_build.load("clay_encode")
-    fn = lib.clay_encode_launch
-    fn.argtypes = [_ptr] * 10 + [_ptr, _ptr, _int, _int, _int,
-                                 ctypes.c_longlong, _int, _ptr]
-    fn.restype = _int
-    return lib
+_encode = None
+
+
+def _encode_lib() -> tuple[ctypes.CDLL, object]:
+    """(library, launcher) of B3, the launcher's ctypes signature set once
+    when the library loads."""
+    global _encode
+    if _encode is None:
+        lib = cuda_build.load("clay_encode")
+        fn = lib.clay_encode_launch
+        fn.argtypes = [_ptr] * 12 + [_int, _int, _int, _ptr,
+                                     ctypes.c_longlong, _int, _int, _int,
+                                     _int, _ptr]
+        fn.restype = _int
+        _encode = lib, fn
+    return _encode
 
 
 def _transform_lib() -> ctypes.CDLL:
@@ -75,41 +100,114 @@ def _transform_lib() -> ctypes.CDLL:
     return lib
 
 
+class LaunchPlan(NamedTuple):
+    """One B3 launch: form, lane groups of 32 per block, block size,
+    blocks, dynamic shared memory bytes."""
+    split: bool
+    groups: int
+    threads: int
+    blocks: int
+    smem: int
+
+
+def launch_plan(L: int, m: int, ssc: int, kk: int, sms: int) -> LaunchPlan:
+    """B3's launch form for L lanes on a card of ``sms`` SMs.
+
+    The full form tiles L by 32*G lanes (G <= 8, as large as keeps two
+    blocks' u_p within an SM) with 256 threads over (plane, lane group).
+    Where that grid has fewer blocks than the card has SMs, the short form
+    takes tiles of 64 lanes (32 if u_p would not fit) with up to 1,024
+    threads over (plane, lane group, MDS term). Raises ValueError where
+    one lane group's u_p (m*ssc*32 bytes) exceeds a block's shared
+    memory."""
+    rows = m * ssc
+    if rows * 32 > MAX_SMEM:
+        raise ValueError(
+            f"clay encode kernel: m*ssc={rows} parity sub-chunks exceed one "
+            f"block's shared memory")
+    g = FULL_GROUPS
+    while g > 1 and rows * 32 * g > _ENCODE_SMEM:
+        g //= 2
+    blocks = -(-L // (32 * g))
+    if blocks >= sms:
+        return LaunchPlan(False, g, FULL_THREADS, blocks, rows * 32 * g)
+    g = SHORT_GROUPS if rows * 32 * SHORT_GROUPS <= MAX_SMEM else 1
+    work = max(ssc * g * kk, rows * g)
+    threads = min(SHORT_THREADS, -(-work // 32) * 32)
+    return LaunchPlan(True, g, threads, -(-L // (32 * g)), rows * 32 * g)
+
+
+def _top_bit(table: np.ndarray) -> int:
+    """The highest set bit over a coefficient table, -1 if all zero."""
+    return int(np.bitwise_or.reduce(table.reshape(-1).astype(np.int64),
+                                    initial=0)).bit_length() - 1
+
+
+_sms: dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device (with its index), read once per
+    device."""
+    n = _sms.get(device.index)
+    if n is None:
+        n = _sms[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
 class EncodeKernel:
     """Kernel B3: ``[k, ssc, L] uint8 -> [m, ssc, L]`` on the card."""
 
-    #: lanes of a block's tile are 32 words of 4 bytes
-    TILE_WORDS = 32
+    #: tables on the device, in the launcher's argument order
+    TABLES = ("ps_row", "pa_row", "a1", "a2", "pc_row", "pu", "b1", "b2",
+              "b3")
 
     def __init__(self, arrays: dict) -> None:
         self.k, self.m = arrays["k"], arrays["m"]
         self.kk, self.ssc = arrays["kk"], arrays["ssc"]
-        self.smem = self.m * self.ssc * self.TILE_WORDS * 4
-        self.tables = cuda_build.DeviceArrays(arrays)
+        self.dmat = np.ascontiguousarray(arrays["dmat"], dtype=np.uint8)
+        self._top_bits = (ctypes.c_int * 6)(*(
+            _top_bit(arrays[name]) for name in
+            ("a1", "a2", "dmat", "b1", "b2", "b3")))
+        self.top_bits = ctypes.addressof(self._top_bits)
+        self.tables = cuda_build.DeviceArrays(
+            {name: arrays[name] for name in self.TABLES})
+        self._ptrs: dict[torch.device, tuple[int, ...]] = {}
+
+    def _table_ptrs(self, device: torch.device) -> tuple[int, ...]:
+        ptrs = self._ptrs.get(device)
+        if ptrs is None:
+            t = self.tables.on(device)
+            ptrs = self._ptrs[device] = tuple(
+                t[name].data_ptr() for name in self.TABLES) + (
+                self.dmat.ctypes.data,)
+        return ptrs
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         _check_input(x, self.k * self.ssc, "clay encode")
-        if self.smem > MAX_SMEM:
-            raise ValueError(
-                f"clay encode kernel: m*ssc={self.m * self.ssc} parity "
-                f"sub-chunks exceed one block's shared memory")
+        if self.m * self.kk > MAX_DMAT:
+            raise ValueError(f"clay encode kernel: m*kk={self.m * self.kk} "
+                             f"MDS coefficients exceed {MAX_DMAT}")
         L = x.shape[2]
+        dev = x.device
+        plan = launch_plan(L, self.m, self.ssc, self.kk, _sm_count(dev))
         out = torch.empty((self.m, self.ssc, L), dtype=torch.uint8,
-                          device=x.device)
+                          device=dev)
         if L == 0:
             return out
-        t = self.tables.on(x.device)
-        vec = int(L % 4 == 0 and x.data_ptr() % 4 == 0)
-        lib = _encode_lib()
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        with torch.cuda.device(x.device):
-            err = lib.clay_encode_launch(
-                t["ps_row"].data_ptr(), t["pa_row"].data_ptr(),
-                t["a1"].data_ptr(), t["a2"].data_ptr(),
-                t["dmat"].data_ptr(), t["pc_row"].data_ptr(),
-                t["pu"].data_ptr(), t["b1"].data_ptr(), t["b2"].data_ptr(),
-                t["b3"].data_ptr(), x.data_ptr(), out.data_ptr(),
-                self.kk, self.m, self.ssc, L, vec, stream)
+        lib, fn = _encode_lib()
+        ptrs = self._table_ptrs(dev)
+        src, dst = x.data_ptr(), out.data_ptr()
+        vec = int(L % 16 == 0 and src % 16 == 0 and dst % 16 == 0)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        args = (*ptrs, src, dst, self.kk, self.m, self.ssc, self.top_bits,
+                L, vec, int(plan.split), plan.groups, plan.threads, stream)
+        if dev.index == torch.cuda.current_device():
+            err = fn(*args)
+        else:
+            with torch.cuda.device(dev):
+                err = fn(*args)
         cuda_build.check(lib, err, "clay_encode launch")
         global encode_launches
         encode_launches += 1

@@ -30,8 +30,10 @@ Phases, each printing one JSON line:
    one flush (device busy share, top device and host entries);
 6. Clay kernels against their plain versions on the card, byte-exact: B3
    and B4 over k=8,m=4,d=11, k=4,m=2 and k=4,m=3,d=6 (virtual nodes) at
-   ragged L, B4 over 1- to 4-erasure signatures, B5 over the k=8,m=4,d=11
-   decode-1, decode-2 and repair matrices and a random 5% matrix at
+   ragged L (B3 also at 64 and 32 Ki lanes, its short form, and from a
+   pointer one byte off alignment, its byte path), B4 over 1- to
+   4-erasure signatures, B5 over the k=8,m=4,d=11 decode-1, decode-2
+   and repair matrices and a random 5% matrix at
    ragged N and at every lane count of phases 7-8 (64, 32 Ki, 256 Ki);
 7. Clay main path, the repo's Clay deployment k=8, m=4, d=11 on CUDA, one
    128 MiB object (8 data chunks of 16 MiB, L = 256 KiB per sub-chunk):
@@ -51,11 +53,12 @@ Phases, each printing one JSON line:
    per-stripe shape; B5 also at the decode-2 matrix's 32 Ki-lane
    calibration sample and 64-lane per-stripe shapes), each beside its
    plain version, its bound and the dense bit-sliced product on the same
-   linearized matrix (the product the calibration compares against); B5
-   held against its plain version at each of those shapes and timed
-   through the entry point (``ms``, the span of the old split-nibble
-   design's ``prev_ms``), through its wrapper and as the profiler's
-   device time of the kernel, beside its XOR-count floor; with the
+   linearized matrix (the product the calibration compares against); B3
+   and B5 held against their plain versions at each of those shapes and
+   timed through the entry point (``ms``, the span of the old designs'
+   ``prev_ms``: B3's byte-wise, B5's split-nibble), through the wrapper
+   (``wrapper_ms``) and as the profiler's device time of the kernel
+   (``device_ms``), beside the XOR-count floor; with the
    calibration's picks and timings, and a torch.profiler breakdown of one
    128 MiB ``codec.encode``;
 9. B6 against its plain version on the card, byte-exact: ISA encode
@@ -122,6 +125,10 @@ SEED = 20261016
 CLAY = {"k": "8", "m": "4", "d": "11"}
 CLAY_PROFILES = [CLAY, {"k": "4", "m": "2"}, {"k": "4", "m": "3", "d": "6"}]
 CLAY_L = (1, 63, 4097, 1 << 18)
+#: B3 is checked also at 64 lanes (an ec_util per-stripe call) and 32 Ki,
+#: both in its short form on an H100, and at full size in its full form;
+#: one more case per profile reads from a pointer one byte off alignment
+B3_L = (1, 63, 64, 4097, 1 << 15, 1 << 18)
 #: B5 is checked also at the lane counts it runs at on the main path
 #: besides full size: 64 (an ec_util per-stripe call) and 32 Ki (the
 #: calibration sample), whole 16-byte words, which its column-slice form
@@ -141,6 +148,10 @@ LRC_OBJECT = 64 << 20              # LRC k=4,m=2,l=3: 4 chunks of 16 MiB
 PREV_B5_MS = {"decode-2": 1.1044447898864747, "decode-1": 0.5856832027435303,
               "repair": 0.21266560554504396,
               "decode-2 per-stripe": 0.5138144016265869}
+#: B3 times of the byte-wise design the bit-sliced kernel replaced, ms,
+#: from this script's phase 8 (NVIDIA H100 80GB HBM3, 700.00 W; through
+#: the entry point), printed beside the new times as ``prev_ms``
+PREV_B3_MS = {"full": 0.7168, "64 lanes": 0.1174}
 
 
 def emit(obj) -> None:
@@ -252,8 +263,10 @@ def clay_kernel_checks(dev, gen) -> dict:
         ssc, qt = codec.sub_chunk_no, codec.q * codec.t
         n = codec.k + codec.m
         enc = clay_device.build_encode_kernel(codec)
-        for L in CLAY_L:
-            x = rand(codec.k, ssc, L)
+        unaligned = rand(codec.k * ssc * 4096 + 1)[1:].view(codec.k, ssc,
+                                                            4096)
+        for L in B3_L + ("unaligned",):
+            x = unaligned if L == "unaligned" else rand(codec.k, ssc, L)
             got = enc(x)
             torch.cuda.synchronize()
             err = max_err(got, enc.plain(x))
@@ -292,7 +305,8 @@ def clay_kernel_checks(dev, gen) -> dict:
             check(err == 0, f"B5 {label} N={L} differs from plain")
             errs["b5"], cases["b5"] = max(errs["b5"], err), cases["b5"] + 1
     emit({"phase": "clay_kernels", "profiles": CLAY_PROFILES,
-          "lanes": CLAY_L, "b5_lanes": B5_L, "cases": cases,
+          "lanes": CLAY_L, "b3_lanes": B3_L + ("unaligned 4096",),
+          "b5_lanes": B5_L, "cases": cases,
           "max_abs_err": errs,
           "block_sparse_stats": {label: gf_block_sparse.occupancy_stats(mat)
                                  for label, mat in mats.items()},
@@ -471,38 +485,56 @@ def clay_times(dev, hbm, smi, st) -> dict:
     from ceph_tpu_torch.bench.b5_ab import device_ms
     from ceph_tpu_torch.bench.ec_bench import time_cuda
     from ceph_tpu_torch.models import clay_device
-    from ceph_tpu_torch.ops import (gf_block_sparse, gf_block_sparse_cuda,
+    from ceph_tpu_torch.ops import (clay_cuda, gf_block_sparse,
+                                    gf_block_sparse_cuda,
                                     gf_block_sparse_torch, gf_torch)
 
     codec, kcodec, ssc, L = st["codec"], st["kcodec"], 64, CLAY_SUB
     out = {}
-    # B3: encode [8*64, L] -> [4*64, L]
+    # B3: encode [8*64, L] -> [4*64, L], at full size and at the ec_util
+    # leg's shape (one stripe of 4096 B per chunk, 64 lanes)
     x, enc_fn = st["x"], codec._enc_fn
     arr = clay_device.encode_kernel_arrays(enc_fn.tables)
-    muls = int(((arr["a1"] != 0) & (arr["ps_row"] >= 0)).sum() +
-               ((arr["a2"] != 0) & (arr["pa_row"] >= 0)).sum() +
-               ssc * (arr["dmat"] != 0).sum() +
-               ((arr["b1"] != 0) & (arr["pc_row"] >= 0)).sum() +
-               (arr["b2"] != 0).sum() + (arr["b3"] != 0).sum())
+    kern = clay_cuda.EncodeKernel(arr)
+    live = {"a1": arr["ps_row"] >= 0, "a2": arr["pa_row"] >= 0,
+            "b1": arr["pc_row"] >= 0, "b2": True, "b3": True}
+    muls = ssc * int((arr["dmat"] != 0).sum()) + sum(
+        int(((arr[t] != 0) & ok).sum()) for t, ok in live.items())
+    # set coefficient bits: the bit-sliced kernel XORs 8 plane words each
+    bits = ssc * int(np.unpackbits(arr["dmat"]).sum()) + sum(
+        int(np.unpackbits(np.where(ok, arr[t], 0).astype(np.uint8)).sum())
+        for t, ok in live.items())
     enc_mat = codec._encode_matrix()
-    xs = x.reshape(8 * ssc, L)
-    check(torch.equal(gf_torch.matvec(enc_mat, xs),
+    check(torch.equal(gf_torch.matvec(enc_mat, x.reshape(8 * ssc, L)),
                       enc_fn(x).reshape(4 * ssc, L)), "B3 vs dense product")
-    bound, by = _bound(12 * ssc * L, 128 * muls * L, hbm)
-    ms = time_cuda(lambda: enc_fn(x), 10) * 1e3
-    out["b3"] = {"ms": ms, "GBps": 8 * ssc * L / ms / 1e6,
-                 "plain_ms": time_cuda(lambda: enc_fn.plain(x), 1, 3) * 1e3,
-                 "library_ms": time_cuda(
-                     lambda: gf_torch.matvec(enc_mat, xs), 1, 3) * 1e3,
-                 "bound_ms": bound, "bound_by": by, "gf_muls_per_lane": muls,
-                 "shape": [8 * ssc, L]}
-    # the ec_util leg's shape: one stripe of 4096 B per chunk, 64 lanes
-    xp = x[:, :, :CHUNK // ssc].contiguous()
-    bound, by = _bound(12 * CHUNK, 128 * muls * xp.shape[2], hbm)
-    out["b3"]["per_stripe"] = {
-        "lanes": xp.shape[2], "ms": time_cuda(lambda: enc_fn(xp), 10) * 1e3,
-        "plain_ms": time_cuda(lambda: enc_fn.plain(xp), 1, 3) * 1e3,
-        "bound_ms": bound, "bound_by": by}
+    b3 = {}
+    for label, xs in (("full", x), ("64 lanes",
+                                    x[:, :, :CHUNK // ssc].contiguous())):
+        lanes = xs.shape[2]
+        want = enc_fn.plain(xs)
+        check(torch.equal(enc_fn(xs), want) and torch.equal(kern(xs), want),
+              f"B3 {label} differs from plain")
+        bound, by = _bound(12 * ssc * lanes, 128 * muls * lanes, hbm)
+        flat = xs.reshape(8 * ssc, lanes)
+        # through the entry point (the span PREV_B3_MS was taken on), the
+        # wrapper alone, and the profiler's device time of the kernel
+        ms = time_cuda(lambda: enc_fn(xs), 10) * 1e3
+        b3[label] = {
+            "ms": ms, "prev_ms": PREV_B3_MS[label],
+            "wrapper_ms": time_cuda(lambda: kern(xs), 10) * 1e3,
+            "device_ms": device_ms(lambda: kern(xs),
+                                   kernel="clay_encode_kernel"),
+            "GBps": 8 * ssc * lanes / ms / 1e6,
+            "plain_ms": time_cuda(lambda: enc_fn.plain(xs), 1, 3) * 1e3,
+            "library_ms": time_cuda(
+                lambda: gf_torch.matvec(enc_mat, flat), 1, 3) * 1e3,
+            "bound_ms": bound, "bound_by": by,
+            "xor_floor_ms": 8 * bits * lanes / 32 / H100_INT32_OPS_PER_S
+            * 1e3,
+            "lanes": lanes, "launch_plan": clay_cuda.launch_plan(
+                lanes, 4, ssc, 8, clay_cuda._sm_count(dev))._asdict()}
+    out["b3"] = dict(b3["full"], gf_muls_per_lane=muls, coef_bits=bits,
+                     shape=[8 * ssc, L], per_stripe=b3["64 lanes"])
     # B4: the e=2 signature, padded to 4 erased nodes
     key, c_full = st["key"], st["c_full"]
     tfn = kcodec._lin_cache[("ker", key)]
@@ -603,6 +635,9 @@ def clay_phases(dev, hbm, smi) -> list:
              "bound_by": m["bound_by"], "library_ms": m["library_ms"],
              "pass": True,
              **({"launches_by_lanes": by_lanes[key]} if key in by_lanes
+                else {}),
+             **({k: m[k] for k in ("prev_ms", "wrapper_ms", "device_ms",
+                                   "per_stripe")} if key == "clay_encode"
                 else {})}
             for name, key, src, ref, err, m in rows]
 

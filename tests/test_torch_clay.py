@@ -211,6 +211,189 @@ def test_b3_kernel_tables_replay_to_plain(profile):
     assert np.array_equal(got.reshape(want.shape), want)
 
 
+def _transpose8(w):
+    """csrc/clay_encode.cu's transpose8 on [..., 8] uint32 words: 12 masked
+    swaps, its own inverse."""
+    w = w.copy()
+
+    def swap(a, b, s, mask):
+        t = ((w[..., a] >> np.uint32(s)) ^ w[..., b]) & np.uint32(mask)
+        w[..., b] ^= t
+        w[..., a] ^= t << np.uint32(s)
+
+    for q in range(4):
+        swap(q, q + 4, 4, 0x0F0F0F0F)
+    for a, b in ((0, 2), (1, 3), (4, 6), (5, 7)):
+        swap(a, b, 2, 0x33333333)
+    for q in range(0, 8, 2):
+        swap(q, q + 1, 1, 0x55555555)
+    return w
+
+
+def _xtime8(p):
+    """x * p in bit-plane form modulo 0x11d: 3 XORs, the rest renaming."""
+    h = p[..., 7]
+    return np.stack([h, p[..., 0], p[..., 1] ^ h, p[..., 2] ^ h,
+                     p[..., 3] ^ h, p[..., 4], p[..., 5], p[..., 6]], axis=-1)
+
+
+def _mul_acc(acc, x, c, nb):
+    """acc ^= c * x along the chain, one masked XOR per bit 0..nb of c."""
+    for b in range(8):
+        if b > nb:
+            break
+        if b:
+            x = _xtime8(x)
+        acc ^= x & np.uint32(0xFFFFFFFF if (int(c) >> b) & 1 else 0)
+    return acc
+
+
+def _emulate_bitsliced(arr, x, plan):
+    """csrc/clay_encode.cu in numpy, form and tile from ``plan``
+    (clay_cuda.launch_plan): its items, loads (32 lanes per group, zero
+    past L), bit-plane arithmetic, u_p in the kernel's shared-memory
+    layout [word][row][group] (the short form XOR-reducing the MDS terms
+    into it), recouple and stores. Lanes are vectorized over the blocks,
+    the thread partition is replayed item by item."""
+    kk, ssc, m = arr["kk"], arr["ssc"], arr["m"]
+    rows, L = m * ssc, x.shape[1]
+    g_n, blocks = plan.groups, plan.blocks
+    nb = {name: clay_cuda._top_bit(arr[name])
+          for name in ("a1", "a2", "dmat", "b1", "b2", "b3")}
+    pad = np.zeros((x.shape[0], blocks * g_n * 32), dtype=np.uint8)
+    pad[:, :L] = x
+    words = pad.view("<u4").reshape(x.shape[0], blocks, g_n, 8)
+    up = np.zeros((blocks, 8 * rows * g_n), dtype=np.uint32)
+
+    def row_term(acc, c, bits, row, g):
+        if c == 0 or row < 0:
+            return acc
+        return _mul_acc(acc, _transpose8(words[row, :, g]), c, bits)
+
+    pg = ssc * g_n
+    items = pg * kk if plan.split else pg
+    seen = set()
+    for t in range(plan.threads):
+        for it in range(t, items, plan.threads):
+            j0 = it // pg if plan.split else 0
+            zg = it - j0 * pg if plan.split else it
+            z, g = divmod(zg, g_n)
+            for j in range(j0, j0 + 1 if plan.split else kk):
+                assert (j, z, g) not in seen
+                seen.add((j, z, g))
+            for i0 in range(0, m, 4):
+                acc = np.zeros((4, blocks, 8), dtype=np.uint32)
+                for j in range(j0, j0 + 1 if plan.split else kk):
+                    f = j * ssc + z
+                    ud = np.zeros((blocks, 8), dtype=np.uint32)
+                    ud = row_term(ud, arr["a1"][f], nb["a1"],
+                                  arr["ps_row"][f], g)
+                    ud = row_term(ud, arr["a2"][f], nb["a2"],
+                                  arr["pa_row"][f], g)
+                    for b in range(nb["dmat"] + 1):
+                        if b:
+                            ud = _xtime8(ud)
+                        for ii in range(4):
+                            i = i0 + ii
+                            c = int(arr["dmat"][i, j]) if i < m else 0
+                            if (c >> b) & 1:
+                                acc[ii] ^= ud
+                for ii in range(min(4, m - i0)):
+                    for w in range(8):
+                        idx = (w * rows + (i0 + ii) * ssc + z) * g_n + g
+                        if plan.split:
+                            up[:, idx] ^= acc[ii][:, w]
+                        else:
+                            up[:, idx] = acc[ii][:, w]
+    assert len(seen) == kk * ssc * g_n
+    out = np.zeros((rows, blocks, g_n, 8), dtype=np.uint32)
+    done = set()
+    for t in range(plan.threads):
+        for it in range(t, rows * g_n, plan.threads):
+            r, g = divmod(it, g_n)
+            done.add((r, g))
+            v = np.zeros((blocks, 8), dtype=np.uint32)
+            v = row_term(v, arr["b1"][r], nb["b1"], arr["pc_row"][r], g)
+            xr = np.stack([up[:, (w * rows + r) * g_n + g]
+                           for w in range(8)], axis=-1)
+            v = _mul_acc(v, xr, arr["b2"][r], nb["b2"])
+            if arr["b3"][r]:
+                r3 = arr["pu"][r]
+                x3 = np.stack([up[:, (w * rows + r3) * g_n + g]
+                               for w in range(8)], axis=-1)
+                v = _mul_acc(v, x3, arr["b3"][r], nb["b3"])
+            out[r, :, g] = _transpose8(v)
+    assert len(done) == rows * g_n
+    return out.reshape(rows, -1).view(np.uint8)[:, :L]
+
+
+#: ragged lane counts around both forms' tiles: the short form's 64 lanes
+#: and the full form's 256 (k=8,m=4,d=11 at G=8)
+REPLAY_L = (1, 63, 64, 65, 255, 256, 257)
+
+
+@pytest.mark.parametrize("form", ["full", "short"])
+@pytest.mark.parametrize("profile", [FLAGSHIP, VIRTUAL, SMALL],
+                         ids=["k8m4d11", "k4m3d6", "k4m2d5"])
+def test_b3_bitsliced_replay_equals_plain_and_reference(profile, form):
+    """The bit-sliced kernel's arithmetic and partition, replayed on the
+    CPU, gives build_encode_fast's and the reference codec's bytes."""
+    ref, port = ref_codec(profile), port_codec(profile)
+    fast = cd.build_encode_fast(port)
+    arr = cd.encode_kernel_arrays(fast.tables)
+    # sms=1 always takes the full form, a huge SM count the short one
+    sms = 1 if form == "full" else 1 << 30
+    for L in REPLAY_L:
+        data = _data(ref, L, 100 + L)
+        x = np.stack([data[i].reshape(port.sub_chunk_no, L)
+                      for i in range(port.k)])
+        plan = clay_cuda.launch_plan(L, port.m, port.sub_chunk_no,
+                                     arr["kk"], sms)
+        assert plan.split == (form == "short")
+        got = _emulate_bitsliced(arr, x.reshape(-1, L), plan)
+        want = fast(torch.from_numpy(x)).numpy()
+        assert np.array_equal(got.reshape(want.shape), want), L
+        host = ref.encode_chunks(list(range(ref.k, ref.k + ref.m)), data)
+        for p in range(ref.m):
+            assert np.array_equal(got[p * port.sub_chunk_no:
+                                      (p + 1) * port.sub_chunk_no]
+                                  .reshape(-1), host[ref.k + p]), (L, p)
+
+
+def test_b3_bitsliced_helpers_match_gf_arithmetic():
+    """The transpose is its own inverse and maps byte lanes to bit planes;
+    the chain and masked multiply equal GF(2^8) products lane by lane."""
+    rng = np.random.default_rng(3)
+    raw = rng.integers(0, 256, (5, 32), dtype=np.uint8)
+    w = raw.view("<u4").reshape(5, 8)
+    planes = _transpose8(w)
+    assert np.array_equal(_transpose8(planes), w)
+    for lane in range(32):
+        q, s = divmod(lane, 4)
+        bits = (planes >> np.uint32(8 * s + q)) & np.uint32(1)
+        want = (raw[:, lane, None] >> np.arange(8)) & 1
+        assert np.array_equal(bits, want.astype(np.uint32)), lane
+    for c in (1, 2, 3, 0x1d, 0x80, 231, 255):
+        acc = _mul_acc(np.zeros_like(planes), planes, c,
+                       clay_cuda._top_bit(np.array([c], np.uint8)))
+        got = _transpose8(acc).reshape(5, 8).view(np.uint8)
+        assert np.array_equal(got, _mul(c, raw)), c
+
+
+def test_b3_launch_plan_picks_form_and_refuses_oversize():
+    """Full form where its grid fills the card, short form below; a
+    profile whose u_p exceeds a block's shared memory is refused."""
+    full = clay_cuda.launch_plan(1 << 18, 4, 64, 8, 132)
+    assert (full.split, full.groups, full.threads, full.blocks,
+            full.smem) == (False, 8, 256, 1024, 64 * 1024)
+    short = clay_cuda.launch_plan(64, 4, 64, 8, 132)
+    assert (short.split, short.groups, short.threads, short.blocks,
+            short.smem) == (True, 2, 1024, 1, 16 * 1024)
+    assert clay_cuda.launch_plan(4097, 2, 8, 4, 132).threads == 64
+    with pytest.raises(ValueError):
+        clay_cuda.launch_plan(64, 4, clay_cuda.MAX_SMEM // 128 + 1, 8, 132)
+
+
 # -- kernel B4's plain version ------------------------------------------
 
 def test_plain_b4_equals_reference_transform_kernel():

@@ -141,18 +141,33 @@ def _clay(profile, device):
     return instance().factory("clay", profile, device=device)
 
 
+#: B3's lane counts: the short form (64 lanes a tile) at 1, 63, 64, 4097
+#: and 32 Ki lanes on 132 SMs, the full form at 256 Ki
+B3_L = (1, 63, 64, 4097, 1 << 15, 1 << 18)
+
+
 @pytest.mark.parametrize("profile", CLAY_PROFILES,
                          ids=["k8m4d11", "k4m2", "k4m3d6"])
 def test_clay_encode_kernel_matches_plain(cuda, profile):
     codec = _clay(profile, cuda)
     enc = clay_device.build_encode_kernel(codec)
+    k, ssc = codec.k, codec.sub_chunk_no
     clay_cuda.reset_launches()
-    for L in CLAY_L:
-        x = torch.from_numpy(_bytes(L, codec.k, codec.sub_chunk_no, L)).to(cuda)
+    calls = 0
+    for L in B3_L:
+        x = torch.from_numpy(_bytes(L, k, ssc, L)).to(cuda)
         got = enc(x)
+        calls += 1
         torch.cuda.synchronize()
         assert torch.equal(got, enc.plain(x)), L
-    assert clay_cuda.encode_launches == len(CLAY_L)
+    # an input pointer one byte off alignment takes the byte path
+    buf = torch.from_numpy(_bytes(11, k * ssc * 4096 + 1)).to(cuda)
+    x = buf[1:].view(k, ssc, 4096)
+    got = enc(x)
+    calls += 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, enc.plain(x))
+    assert clay_cuda.encode_launches == calls
 
 
 @pytest.mark.parametrize("profile", CLAY_PROFILES,
