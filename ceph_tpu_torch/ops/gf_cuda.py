@@ -1,10 +1,12 @@
 """Kernel B1 on Hopper: the GF(2^8) matrix-stripe product (csrc/gf_matvec.cu).
 
 Replaces ``ceph_tpu/ops/gf_pallas.py::_gf_matvec_kernel`` (entry
-``matvec_device``). The host builds ISA-L-style split-nibble tables, 32
-bytes per coefficient; the kernel stages them in shared memory and each
-thread XORs table lookups for 16 lanes into up to four output rows per
-pass. See the source for the design and its bound.
+``matvec_device``). A thread holds 32 lanes of a data row as 8 bit-plane
+words and multiplies along the multiply-by-x chain; the host turns the
+matrix into a parameter block (:func:`coef_block`: per input column and
+chain step, the mask of output rows whose coefficient has that bit set)
+that the kernel takes in its launch parameters. See the source for the
+design and its bound.
 
 :func:`matvec_device` is device-in/device-out and byte-identical to
 ``gf256.gf_matvec_chunks``. For a CUDA tensor it launches the kernel or
@@ -15,22 +17,33 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ceph_tpu_torch.ops import cuda_build, gf256, gf_torch
+from ceph_tpu_torch.ops import cuda_build, gf_torch
 
-#: largest matrix the kernel takes: 32 x 128 coefficients are 128 KiB of
-#: tables in shared memory (the TPU wrapper's limit, gf_pallas.py:234)
+#: largest matrix the kernel takes: 32 output rows fit one 32-bit row
+#: mask, and 128 columns of masks (4 KiB) the kernel's parameters (the
+#: TPU wrapper's limit, gf_pallas.py:234)
 MAX_M, MAX_K = 32, 128
 
 #: launches of the CUDA kernel since the last reset (plain runs not counted)
 launches = 0
 
+#: the kernel's block size, the lanes of one block (256 threads x 32
+#: lanes) and its row-block templates: output rows accumulated in
+#: registers per pass over the data (the smallest that holds m, passes of
+#: 16 past 16)
+THREADS = 256
+TILE_LANES = THREADS * 32
+ROW_BLOCKS = (2, 4, 16)
+
 _NAME = "gf_matvec"
-_tables_lock = threading.Lock()
-_tables: dict[tuple, torch.Tensor] = {}
+_coef_lock = threading.Lock()
+_coef: dict[tuple, tuple[np.ndarray, int]] = {}
+_launcher = None
 
 
 def reset_launches() -> None:
@@ -38,36 +51,69 @@ def reset_launches() -> None:
     launches = 0
 
 
-def nibble_tables(mat: np.ndarray) -> np.ndarray:
-    """[m, k, 32] uint8: entry (i, j) holds mat[i,j]*x for x = 0..15
-    (low nibble) then mat[i,j]*(x << 4) (high nibble)."""
+def coef_block(mat: np.ndarray) -> np.ndarray:
+    """The kernel's parameter block for ``mat`` [m, k], as uint8: mask
+    [k, 8] uint32 little-endian, bit i of mask[j, s] = bit s of
+    mat[i, j] (= B[8i+s, 8j] of ``bitmatrix.expand_bitmatrix``), then
+    steps [k] uint8, the chain length of column j (its top set bit + 1,
+    0 for a zero column)."""
     mat = np.asarray(mat, dtype=np.uint8)
-    nib = np.arange(16, dtype=np.uint8)
-    lo = gf256.MUL_TABLE[mat[:, :, None], nib[None, None, :]]
-    hi = gf256.MUL_TABLE[mat[:, :, None], (nib << 4)[None, None, :]]
-    return np.ascontiguousarray(np.concatenate([lo, hi], axis=2))
+    m, k = mat.shape
+    bits = (mat[:, :, None] >> np.arange(8, dtype=np.uint8)) & 1
+    mask = (bits.astype(np.uint32) <<
+            np.arange(m, dtype=np.uint32)[:, None, None]).sum(
+                axis=0, dtype=np.uint32)
+    top = np.bitwise_or.reduce(mat, axis=0)
+    steps = np.array([int(v).bit_length() for v in top], dtype=np.uint8)
+    return np.concatenate([mask.astype("<u4").view(np.uint8).reshape(-1),
+                           steps])
 
 
-def _device_tables(mat: np.ndarray, device: torch.device) -> torch.Tensor:
-    key = (mat.shape, mat.tobytes(), str(device))
-    with _tables_lock:
-        dev = _tables.get(key)
-        if dev is None:
-            if len(_tables) > 256:
-                _tables.clear()
-            dev = _tables[key] = torch.from_numpy(
-                nibble_tables(mat)).to(device)
-    return dev
+class LaunchPlan(NamedTuple):
+    """One B1 launch: row-block template, passes over the data, blocks."""
+    rows: int
+    passes: int
+    blocks: int
 
 
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load(_NAME)
-    fn = lib.gf_matvec_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+def launch_plan(n: int, m: int) -> LaunchPlan:
+    """B1's launch for N lanes and m output rows: rows 2 for m <= 2, 4 for
+    m <= 4, else 16; one block of 256 threads per tile of TILE_LANES
+    lanes and pass. The C launcher takes this plan as it is and only
+    refuses one that does not cover m rows and N lanes."""
+    rows = next((r for r in ROW_BLOCKS if m <= r), ROW_BLOCKS[-1])
+    passes = -(-m // rows)
+    return LaunchPlan(rows, passes, -(-n // TILE_LANES) * passes)
+
+
+def _coef_ptr(mat: np.ndarray) -> tuple[np.ndarray, int]:
+    """(parameter block, its address), built once per matrix."""
+    key = (mat.shape, mat.tobytes())
+    hit = _coef.get(key)
+    if hit is None:
+        blk = coef_block(mat)
+        hit = blk, blk.ctypes.data
+        with _coef_lock:
+            if len(_coef) > 256:
+                _coef.clear()
+            _coef[key] = hit
+    return hit
+
+
+def _lib() -> tuple[ctypes.CDLL, object]:
+    """(library, launcher), the launcher's ctypes signature set once when
+    the library loads."""
+    global _launcher
+    if _launcher is None:
+        lib = cuda_build.load(_NAME)
+        fn = lib.gf_matvec_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _launcher = lib, fn
+    return _launcher
 
 
 def matvec_device(mat: np.ndarray, data: torch.Tensor) -> torch.Tensor:
@@ -89,16 +135,22 @@ def matvec_device(mat: np.ndarray, data: torch.Tensor) -> torch.Tensor:
     if not data.is_contiguous():
         raise ValueError("data must be contiguous")
     n = data.shape[1]
-    out = torch.empty((m, n), dtype=torch.uint8, device=data.device)
-    if n == 0:
+    dev = data.device
+    out = torch.empty((m, n), dtype=torch.uint8, device=dev)
+    if n == 0 or m == 0:
         return out
-    tables = _device_tables(mat, data.device)
-    vec = int(n % 16 == 0 and data.data_ptr() % 16 == 0)
-    lib = _lib()
-    stream = torch.cuda.current_stream(data.device).cuda_stream
-    with torch.cuda.device(data.device):
-        err = lib.gf_matvec_launch(tables.data_ptr(), data.data_ptr(),
-                                   out.data_ptr(), m, k, n, vec, stream)
+    coef = _coef_ptr(mat)        # held until the launch has copied it
+    plan = launch_plan(n, m)
+    src, dst = data.data_ptr(), out.data_ptr()
+    vec = int(n % 16 == 0 and src % 16 == 0 and dst % 16 == 0)
+    lib, fn = _lib()
+    args = (src, dst, n, m, k, coef[1], *plan, vec,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
     cuda_build.check(lib, err, "gf_matvec launch")
     global launches
     launches += 1

@@ -15,6 +15,9 @@ Phases, each printing one JSON line:
    all started together, into ``build/torch_ext/``;
 3. kernels: each kernel against its plain torch version on the card,
    byte-exact, over ragged shapes, decode matrices and a 32x128 matrix;
+   B1 also over random k=8 matrices of 4, 5, 16, 17 and 32 rows (with
+   the RS matrices, its 2-, 4- and 16-row templates, one and two passes)
+   and from a pointer one byte off alignment (its byte path);
 4. main path, at the north-star benchmark's size (bench.py:47-49): the
    ISA ``reed_sol_van`` k=8, m=3 codec, 128 objects of 1 MiB (128 MiB per
    flush), stripe unit 4096 B. ``StripeBatcher.flush(with_crcs=True)`` on
@@ -24,8 +27,11 @@ Phases, each printing one JSON line:
    segments), and the reads against the data. Kernel launch counts are
    zeroed before and read after this phase;
 5. times on the card (CUDA events; warm-up, then the median of several
-   runs): B1 encode and e=1/e=2 decode on a resident [8, 16 Mi] batch, B2
-   on the main path's rows, each beside its plain version and its bound,
+   runs): B1 encode and e=1/e=2 decode on a resident [8, 16 Mi] batch,
+   each held against its plain version and timed through the entry point
+   (``ms``, beside the split-nibble design's ``prev_ms``) and as the
+   profiler's device time of the kernel (``device_ms``); B2 on the main
+   path's rows; each beside its plain version and its bound,
    and the fused flush's wall time, with a torch.profiler breakdown of
    one flush (device busy share, top device and host entries);
 6. Clay kernels against their plain versions on the card, byte-exact: B3
@@ -84,8 +90,10 @@ Phases, each printing one JSON line:
    layer, each equal to a numpy-backend codec, with B1's launches, and a
    torch.profiler breakdown of one LRC encode.
 
-Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``. Any mismatch, missing GPU, failed build
+Then the ``kernels`` summary line (every number in it measured in this
+run, but ``bound_ms``, which it computes from this run's inputs; the old
+designs' pinned ``prev_ms`` print only in the phase lines above), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any mismatch, missing GPU, failed build
 or failed launch raises and exits non-zero before the last line.
 """
 
@@ -141,6 +149,16 @@ CLAY_WINDOW = 64                   # lanes checked against the host oracle
 STRIP_CHECK_B = (1, 3, 64, 4097)   # B6 checks: blocks of 128 words a strip
 LRC_OBJECT = 64 << 20              # LRC k=4,m=2,l=3: 4 chunks of 16 MiB
 
+#: B1 is checked over these N (ragged, the 16-byte and the byte path) and
+#: from a pointer one byte off alignment, with random k=8 matrices of
+#: these row counts besides the RS ones (1-3 rows): together they cross
+#: the 2-, 4- and 16-row templates and the two-pass case
+B1_N = (1, 15, 16, 4097, 65536 + 7, 1 << 20)
+B1_ROWS = (4, 5, 16, 17, 32)
+#: B1 times of the split-nibble design the bit-sliced kernel replaced, ms,
+#: from this script's phase 5 (NVIDIA H100 80GB HBM3, 700.00 W; through
+#: the entry point), printed beside the new times as ``prev_ms``
+PREV_B1_MS = {"encode": 0.1763, "decode e=1": 0.0740, "decode e=2": 0.1230}
 #: B5 times of the split-nibble design the bit-sliced kernel replaced, ms,
 #: from this script's phase 8 on the tree before the redesign (NVIDIA H100
 #: 80GB HBM3, 700.00 W; through the entry point), printed beside the new
@@ -636,9 +654,10 @@ def clay_phases(dev, hbm, smi) -> list:
              "pass": True,
              **({"launches_by_lanes": by_lanes[key]} if key in by_lanes
                 else {}),
-             **({k: m[k] for k in ("prev_ms", "wrapper_ms", "device_ms",
-                                   "per_stripe")} if key == "clay_encode"
-                else {})}
+             **({"wrapper_ms": m["wrapper_ms"], "device_ms": m["device_ms"],
+                 "per_stripe": {k: v for k, v in m["per_stripe"].items()
+                                if k != "prev_ms"}}
+                if key == "clay_encode" else {})}
             for name, key, src, ref, err, m in rows]
 
 
@@ -863,6 +882,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from ceph_tpu_torch.bench.b5_ab import device_ms
     from ceph_tpu_torch.bench.ec_bench import time_cuda
     from ceph_tpu_torch.models import instance
     from ceph_tpu_torch.ops import (crc32c_cuda, crc32c_torch, cuda_build,
@@ -903,12 +923,20 @@ def main() -> int:
     for e in (1, 2, 3):
         mats[f"decode e={e}"] = gf256.decode_matrix(
             gen, list(range(e, e + K)), list(range(e)))
+    for mm in B1_ROWS:
+        mats[f"random {mm}x8"] = rng.integers(0, 256, (mm, K), dtype=np.uint8)
     mats["random 32x128"] = rng.integers(0, 256, (32, 128), dtype=np.uint8)
     b1_err, b1_cases = 0, 0
     for label, mat in mats.items():
         kk = mat.shape[1]
-        for n in (1, 15, 16, 4097, 65536 + 7, 1 << 20):
-            d = torch.randint(0, 256, (kk, n), dtype=torch.uint8, device=dev)
+        for n in B1_N + ("offset",):
+            if n == "offset":    # one byte off 16-byte alignment: byte path
+                raw = torch.randint(0, 256, (kk * 4096 + 1,),
+                                    dtype=torch.uint8, device=dev)
+                d = raw[1:].view(kk, 4096)
+            else:
+                d = torch.randint(0, 256, (kk, n), dtype=torch.uint8,
+                                  device=dev)
             got = gf_cuda.matvec_device(mat, d)
             torch.cuda.synchronize()
             err = max_err(got, gf_torch.matvec(mat, d))
@@ -931,7 +959,9 @@ def main() -> int:
     want = checksum.crc32c_rows(xs, 0) ^ np.uint32(crc32c_torch.zeros_crc(512, 0))
     check(crc32c_cuda.crc_rows(torch.from_numpy(xs).to(dev)).cpu().tolist()
           == want.astype(np.int64).tolist(), "B2 vs host oracle")
-    emit({"phase": "kernels", "gf_matvec_cases": b1_cases,
+    emit({"phase": "kernels", "gf_matvec_matrices": list(mats),
+          "gf_matvec_n": list(B1_N) + ["offset 4096"],
+          "gf_matvec_cases": b1_cases,
           "gf_matvec_max_abs_err": b1_err, "crc32c_rows_cases": b2_cases,
           "crc32c_rows_max_abs_err": b2_err, "tolerance": 0})
 
@@ -1013,17 +1043,29 @@ def main() -> int:
                            gen, list(range(1, K + 1)), [0])),
                        ("decode e=2", gf256.decode_matrix(
                            gen, list(range(2, K + 2)), [0, 1]))):
+        # through the entry point (the span PREV_B1_MS was taken on) and
+        # as the profiler's device time of the kernel
         s = time_cuda(lambda: gf_cuda.matvec_device(mat, data), 20)
         check(torch.equal(gf_cuda.matvec_device(mat, data),
                           gf_torch.matvec(mat, data)), f"B1 {label} resident")
         t_bytes = (K + mat.shape[0]) * RESIDENT_LANES / hbm
         t_ops = 2 * 64 * mat.size * RESIDENT_LANES / H100_INT8_OPS_PER_S
-        timings[label] = {"ms": s * 1e3,
-                          "GBps": K * RESIDENT_LANES / s / 1e9,
-                          "bound_ms": max(t_bytes, t_ops) * 1e3,
-                          "bound_by": "bytes" if t_bytes >= t_ops
-                          else "operations"}
-    plain_b1 = time_cuda(lambda: gf_torch.matvec(isa, data), 2, 3)
+        bits = int(np.unpackbits(mat).sum())
+        timings[label] = {
+            "ms": s * 1e3, "prev_ms": PREV_B1_MS[label],
+            "device_ms": device_ms(lambda: gf_cuda.matvec_device(mat, data),
+                                   kernel="gf_matvec"),
+            "GBps": K * RESIDENT_LANES / s / 1e9,
+            "plain_ms": time_cuda(lambda: gf_torch.matvec(mat, data), 2,
+                                  3) * 1e3,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            # 8 plane-word XORs per set coefficient bit per 32 lanes
+            "xor_floor_ms": 8 * bits * RESIDENT_LANES / 32
+            / H100_INT32_OPS_PER_S * 1e3,
+            "coef_bits": bits, "launch_plan": gf_cuda.launch_plan(
+                RESIDENT_LANES, mat.shape[0])._asdict()}
+    plain_b1 = timings["encode"]["plain_ms"] / 1e3
     n = RESIDENT_LANES
     b1_bound_bytes = (K + M) * n / hbm
     b1_bound_ops = 2 * 8 * M * 8 * K * n / H100_INT8_OPS_PER_S
@@ -1080,7 +1122,11 @@ def main() -> int:
          "bound_ms": max(b1_bound_bytes, b1_bound_ops) * 1e3,
          "bound_by": "bytes" if b1_bound_bytes >= b1_bound_ops
          else "operations",
-         "library_ms": None, "pass": True},
+         "library_ms": None, "pass": True,
+         "device_ms": timings["encode"]["device_ms"],
+         "decode": {label: {key: timings[label][key] for key in
+                            ("ms", "device_ms", "bound_ms")}
+                    for label in ("decode e=1", "decode e=2")}},
         {"name": "crc32c_rows (B2)", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/crc32c_rows.cu",
          "replaces": "ceph_tpu/ops/crc32c_device.py:165",

@@ -50,16 +50,30 @@ def _bytes(seed, *shape):
                                                 dtype=np.uint8)
 
 
-@pytest.mark.parametrize("m,k", [(1, 8), (2, 8), (3, 8), (32, 128)])
+@pytest.mark.parametrize("m,k", [(1, 8), (2, 8), (3, 8), (4, 8), (5, 8),
+                                 (16, 8), (17, 8), (32, 8), (32, 128)])
 def test_gf_kernel_matches_plain(cuda, m, k):
+    """Every row-block template (2, 4, and 16 rows in one or two passes)
+    over ragged N, and the byte path from a pointer one byte off
+    alignment."""
     mat = _bytes(m * k, m, k)
     gf_cuda.reset_launches()
+    calls = 0
     for n in RAGGED_N:
         d = torch.from_numpy(_bytes(n, k, n)).to(cuda)
         got = gf_cuda.matvec_device(mat, d)
+        calls += 1
         torch.cuda.synchronize()
         assert torch.equal(got, gf_torch.matvec(mat, d)), (m, k, n)
-    assert gf_cuda.launches == len(RAGGED_N)
+    n = 4096
+    raw = torch.from_numpy(_bytes(n + 1, k * n + 1)).to(cuda)
+    d = raw[1:].view(k, n)
+    assert d.data_ptr() % 16 == 1
+    got = gf_cuda.matvec_device(mat, d)
+    calls += 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, gf_torch.matvec(mat, d)), (m, k, "offset")
+    assert gf_cuda.launches == calls
 
 
 def test_gf_kernel_decode_matrices_and_oracle(cuda):
