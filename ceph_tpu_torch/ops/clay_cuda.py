@@ -11,9 +11,11 @@
   SM count: a full form over (plane, lane group) and, where that grid
   would leave SMs idle, a short form over (plane, lane group, MDS term).
 - B4 replaces ``ceph_tpu/models/clay_device.py::build_transform_kernel``
-  (inner ``kernel``): same translation, with the two state arrays (C and
-  U) of a narrow lane tile in shared memory and the levels as CSR row
-  lists instead of masks over every row.
+  (inner ``kernel``): the same bit-sliced arithmetic, with the two state
+  arrays (C and U) of a tile of lane groups in shared memory in bit-plane
+  form and the levels as CSR row lists instead of masks over every row.
+  :func:`transform_plan` is the one source of its tile, block size and
+  grid.
 
 The structure tables come from models/clay_device.py
 (``encode_kernel_arrays``, ``transform_kernel_arrays``); the classes here
@@ -50,8 +52,11 @@ SHORT_GROUPS = 2
 SHORT_THREADS = 1024
 MAX_DMAT = 1024
 
-#: B4's state budget per block: below MAX_SMEM so two blocks fit an SM
-_TRANSFORM_SMEM = 100 * 1024
+#: B4's launch: most lane groups of 32 per block, and threads per lane
+#: group (bench/b4_ab.py: 2 groups of 256 threads beat 1 and 4 groups, and
+#: 128 threads a group, on an H100)
+TRANSFORM_GROUPS = 2
+TRANSFORM_GROUP_THREADS = 256
 
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
@@ -91,13 +96,27 @@ def _encode_lib() -> tuple[ctypes.CDLL, object]:
     return _encode
 
 
-def _transform_lib() -> ctypes.CDLL:
-    lib = cuda_build.load("clay_transform")
+def transform_launcher(lib: ctypes.CDLL):
+    """B4's launcher in ``lib`` (the committed build or an A/B variant
+    with its C interface), its ctypes signature set."""
     fn = lib.clay_transform_launch
-    fn.argtypes = [_ptr] * 17 + [_ptr, _ptr, _int, _int, _int, _int, _int,
-                                 ctypes.c_longlong, _int, _int, _ptr]
+    fn.argtypes = [_ptr] * 12 + [_int] * 5 + [ctypes.c_longlong] + \
+        [_int] * 5 + [_ptr]
     fn.restype = _int
-    return lib
+    return fn
+
+
+_transform = None
+
+
+def _transform_lib() -> tuple[ctypes.CDLL, object]:
+    """(library, launcher) of B4, the signature set once when the library
+    loads."""
+    global _transform
+    if _transform is None:
+        lib = cuda_build.load("clay_transform")
+        _transform = lib, transform_launcher(lib)
+    return _transform
 
 
 class LaunchPlan(NamedTuple):
@@ -135,6 +154,37 @@ def launch_plan(L: int, m: int, ssc: int, kk: int, sms: int) -> LaunchPlan:
     work = max(ssc * g * kk, rows * g)
     threads = min(SHORT_THREADS, -(-work // 32) * 32)
     return LaunchPlan(True, g, threads, -(-L // (32 * g)), rows * 32 * g)
+
+
+class TransformPlan(NamedTuple):
+    """One B4 launch: lane groups of 32 per block, block size, blocks,
+    dynamic shared memory bytes."""
+    groups: int
+    threads: int
+    blocks: int
+    smem: int
+
+
+def transform_plan(L: int, qt: int, ssc: int, sms: int,
+                   groups: int = TRANSFORM_GROUPS,
+                   threads: int | None = None) -> TransformPlan:
+    """B4's launch for L lanes of a qt-node, ssc-plane signature on a card
+    of ``sms`` SMs: tiles of ``groups`` lane groups (1, 2 or 4; halved
+    until the state fits a block, and while the grid would leave SMs
+    idle), ``threads`` (default 256 a lane group; the kernel takes at
+    most 512) a block, the least grid that covers L. A block holds C and
+    U of each lane group, 2 * qt*ssc rows of 32 bytes. Raises ValueError
+    where one lane group's state exceeds a block's shared memory."""
+    state = 64 * qt * ssc
+    if state > MAX_SMEM:
+        raise ValueError(
+            f"clay transform kernel: qt*ssc={qt * ssc} state rows exceed "
+            f"one block's shared memory")
+    g = groups
+    while g > 1 and (state * g > MAX_SMEM or -(-L // (32 * g)) < sms):
+        g //= 2
+    return TransformPlan(g, threads or TRANSFORM_GROUP_THREADS * g,
+                         -(-L // (32 * g)), state * g)
 
 
 def _top_bit(table: np.ndarray) -> int:
@@ -214,48 +264,109 @@ class EncodeKernel:
         return out
 
 
+def transform_items(arrays: dict, by_coef: bool = True
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """B4's phase-1 and phase-2 rows of ``transform_kernel_arrays`` as
+    items: [n, 4] int32 (row, partner, coefficients, output row), phase 1
+    with ``a1 | a2 << 8``, partner ``pair`` and output row 0, phase 2 with
+    ``b1 | b2 << 8 | b3 << 16``, partner ``p2`` and the row's place in the
+    output (j*ssc + z for row er[j]*ssc + z: phase 2 writes every erased
+    row, once). Each level's items keep their place in the CSR lists
+    (``u_off``, ``c_off``) and are ordered by their coefficients there
+    (``by_coef``; False keeps the lists' order, for bench/b4_ab.py), so
+    that a warp's items mostly share them and its masked chains stop at
+    their highest set bit."""
+    ssc = arrays["ssc"]
+    out_row = np.zeros(arrays["qt"] * ssc, dtype=np.int32)
+    for j, n in enumerate(arrays["er"]):
+        out_row[n * ssc:(n + 1) * ssc] = np.arange(j * ssc, (j + 1) * ssc)
+    c_rows = np.sort(arrays["c_rows"])
+    assert np.array_equal(c_rows, np.sort(
+        np.asarray(arrays["er"])[:, None] * ssc + np.arange(ssc)).ravel()), \
+        "phase 2 must write every erased row once"
+
+    def pack(rows, partner, coef, off, out):
+        items = np.zeros((len(rows), 4), dtype=np.int32)
+        items[:, 0], items[:, 1], items[:, 2], items[:, 3] = \
+            rows, partner[rows], coef[rows], out[rows]
+        for li in range(len(off) - 1 if by_coef else 0):
+            lvl = items[off[li]:off[li + 1]]
+            lvl[:] = lvl[np.argsort(lvl[:, 2], kind="stable")]
+        return items
+
+    a = {name: arrays[name].astype(np.int32) for name in
+         ("a1", "a2", "b1", "b2", "b3")}
+    return (pack(arrays["u_rows"], arrays["pair"], a["a1"] | a["a2"] << 8,
+                 arrays["u_off"], np.zeros_like(out_row)),
+            pack(arrays["c_rows"], arrays["p2"],
+                 a["b1"] | a["b2"] << 8 | a["b3"] << 16, arrays["c_off"],
+                 out_row))
+
+
 class TransformKernel:
     """Kernel B4: ``[qt, ssc, L] uint8 (erased rows zero) -> [e, ssc, L]``
     on the card."""
+
+    #: tables on the device, in the launcher's argument order; intact, er,
+    #: dmat and load (host arrays, copied into the kernel's parameters)
+    #: follow
+    TABLES = ("u_items", "u_off", "p_off", "planes", "c_items", "c_off")
+    HOST = ("intact", "er", "dmat", "load")
 
     def __init__(self, arrays: dict) -> None:
         self.qt, self.ssc = arrays["qt"], arrays["ssc"]
         self.kk, self.e = arrays["kk"], arrays["e"]
         self.n_levels = arrays["n_levels"]
-        rows = self.qt * self.ssc
-        # lane tile: the widest power-of-two word count (<= 32) whose C
-        # and U state fits the budget
-        tw = 32
-        while tw > 1 and 2 * rows * tw * 4 > _TRANSFORM_SMEM:
-            tw //= 2
-        self.tile_words = tw
-        self.smem = 2 * rows * tw * 4
-        self.tables = cuda_build.DeviceArrays(arrays)
+        self.host = {name: np.ascontiguousarray(arrays[name])
+                     for name in self.HOST}
+        u_items, c_items = transform_items(arrays)
+        self.tables = cuda_build.DeviceArrays({
+            "u_items": u_items, "c_items": c_items,
+            **{name: arrays[name] for name in ("u_off", "p_off", "planes",
+                                               "c_off")}})
+        self._ptrs: dict[torch.device, tuple[int, ...]] = {}
 
-    def __call__(self, c_full: torch.Tensor) -> torch.Tensor:
+    def _table_ptrs(self, device: torch.device) -> tuple[int, ...]:
+        ptrs = self._ptrs.get(device)
+        if ptrs is None:
+            t = self.tables.on(device)
+            ptrs = self._ptrs[device] = tuple(
+                t[name].data_ptr() for name in self.TABLES) + tuple(
+                self.host[name].ctypes.data for name in self.HOST)
+        return ptrs
+
+    def __call__(self, c_full: torch.Tensor,
+                 plan: TransformPlan | None = None,
+                 launcher: tuple[ctypes.CDLL, object] | None = None
+                 ) -> torch.Tensor:
+        """Launch on ``c_full``'s device. ``plan`` (default
+        :func:`transform_plan`'s) and ``launcher`` (library, function;
+        default the committed build) are bench/b4_ab.py's variants."""
         _check_input(c_full, self.qt * self.ssc, "clay transform")
-        if self.smem > MAX_SMEM:
-            raise ValueError(
-                f"clay transform kernel: {self.qt * self.ssc} state rows "
-                f"exceed one block's shared memory")
+        if self.e * self.kk > MAX_DMAT:
+            raise ValueError(f"clay transform kernel: e*kk="
+                             f"{self.e * self.kk} MDS coefficients exceed "
+                             f"{MAX_DMAT}")
         L = c_full.shape[2]
+        dev = c_full.device
         out = torch.empty((self.e, self.ssc, L), dtype=torch.uint8,
-                          device=c_full.device)
+                          device=dev)
         if L == 0:
             return out
-        t = self.tables.on(c_full.device)
-        vec = int(L % 4 == 0 and c_full.data_ptr() % 4 == 0)
-        lib = _transform_lib()
-        stream = torch.cuda.current_stream(c_full.device).cuda_stream
-        names = ("a1", "a2", "pair", "b1", "b2", "b3", "p2", "u_off",
-                 "u_rows", "p_off", "planes", "c_off", "c_rows", "intact",
-                 "er", "dmat", "load")
-        ptrs = [t[name].data_ptr() for name in names]
-        with torch.cuda.device(c_full.device):
-            err = lib.clay_transform_launch(
-                *ptrs, c_full.data_ptr(), out.data_ptr(), self.qt,
-                self.ssc, self.kk, self.e, self.n_levels, L, vec,
-                self.tile_words, stream)
+        if plan is None:
+            plan = transform_plan(L, self.qt, self.ssc, _sm_count(dev))
+        lib, fn = launcher or _transform_lib()
+        src, dst = c_full.data_ptr(), out.data_ptr()
+        vec = int(L % 16 == 0 and src % 16 == 0 and dst % 16 == 0)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        args = (*self._table_ptrs(dev), src, dst, self.qt, self.ssc,
+                self.kk, self.e, self.n_levels, L, vec, plan.groups,
+                plan.blocks, plan.threads, plan.smem, stream)
+        if dev.index == torch.cuda.current_device():
+            err = fn(*args)
+        else:
+            with torch.cuda.device(dev):
+                err = fn(*args)
         cuda_build.check(lib, err, "clay_transform launch")
         global transform_launches
         transform_launches += 1

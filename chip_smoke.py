@@ -36,8 +36,8 @@ Phases, each printing one JSON line:
    one flush (device busy share, top device and host entries);
 6. Clay kernels against their plain versions on the card, byte-exact: B3
    and B4 over k=8,m=4,d=11, k=4,m=2 and k=4,m=3,d=6 (virtual nodes) at
-   ragged L (B3 also at 64 and 32 Ki lanes, its short form, and from a
-   pointer one byte off alignment, its byte path), B4 over 1- to
+   ragged L (B3 also at 64 and 32 Ki lanes, its short form; B3 and B4 from
+   a pointer one byte off alignment, their byte paths), B4 over 1- to
    4-erasure signatures, B5 over the k=8,m=4,d=11 decode-1, decode-2
    and repair matrices and a random 5% matrix at
    ragged N and at every lane count of phases 7-8 (64, 32 Ki, 256 Ki);
@@ -60,11 +60,12 @@ Phases, each printing one JSON line:
    calibration sample and 64-lane per-stripe shapes), each beside its
    plain version, its bound and the dense bit-sliced product on the same
    linearized matrix (the product the calibration compares against); B3
-   and B5 held against their plain versions at each of those shapes and
-   timed through the entry point (``ms``, the span of the old designs'
-   ``prev_ms``: B3's byte-wise, B5's split-nibble), through the wrapper
-   (``wrapper_ms``) and as the profiler's device time of the kernel
-   (``device_ms``), beside the XOR-count floor; with the
+   and B5 held against their plain versions at each of those shapes, and
+   B4 at full size, and timed through the entry point (``ms``, the span of
+   the old designs' ``prev_ms``: B3's and B4's byte-wise, B5's
+   split-nibble), through the wrapper (``wrapper_ms``) and as the
+   profiler's device time of the kernel (``device_ms``), beside the
+   XOR-count floor (B4's also beside its set coefficient bits); with the
    calibration's picks and timings, and a torch.profiler breakdown of one
    128 MiB ``codec.encode``;
 9. B6 against its plain version on the card, byte-exact: ISA encode
@@ -170,6 +171,10 @@ PREV_B5_MS = {"decode-2": 1.1044447898864747, "decode-1": 0.5856832027435303,
 #: from this script's phase 8 (NVIDIA H100 80GB HBM3, 700.00 W; through
 #: the entry point), printed beside the new times as ``prev_ms``
 PREV_B3_MS = {"full": 0.7168, "64 lanes": 0.1174}
+#: B4 time of the byte-wise design the bit-sliced kernel replaced, ms, from
+#: this script's phase 8 (NVIDIA H100 80GB HBM3, 700.00 W; through the
+#: entry point), printed beside the new time as ``prev_ms``
+PREV_B4_MS = 1.4534
 
 
 def emit(obj) -> None:
@@ -295,8 +300,10 @@ def clay_kernel_checks(dev, gen) -> dict:
             erased = codec._pad_erased(codec._node_id(i) for i in lost)
             er = sorted(erased)
             fn = clay_device.build_transform_kernel(codec, erased)
-            for L in CLAY_L:
-                c = rand(qt, ssc, L)
+            for L in CLAY_L + ("unaligned",):
+                # one byte off alignment: B4's byte path
+                c = rand(qt * ssc * 4096 + 1)[1:].view(qt, ssc, 4096) \
+                    if L == "unaligned" else rand(qt, ssc, L)
                 c[er] = 0
                 c[codec.k:codec.k + codec.nu] = 0
                 got = fn(c)
@@ -323,7 +330,8 @@ def clay_kernel_checks(dev, gen) -> dict:
             check(err == 0, f"B5 {label} N={L} differs from plain")
             errs["b5"], cases["b5"] = max(errs["b5"], err), cases["b5"] + 1
     emit({"phase": "clay_kernels", "profiles": CLAY_PROFILES,
-          "lanes": CLAY_L, "b3_lanes": B3_L + ("unaligned 4096",),
+          "lanes": CLAY_L + ("unaligned 4096",),
+          "b3_lanes": B3_L + ("unaligned 4096",),
           "b5_lanes": B5_L, "cases": cases,
           "max_abs_err": errs,
           "block_sparse_stats": {label: gf_block_sparse.occupancy_stats(mat)
@@ -557,25 +565,43 @@ def clay_times(dev, hbm, smi, st) -> dict:
     key, c_full = st["key"], st["c_full"]
     tfn = kcodec._lin_cache[("ker", key)]
     tarr = clay_device.transform_kernel_arrays(kcodec, key)
-    muls = 0
+    tkern = clay_cuda.TransformKernel(tarr)
+    muls = bits = 0
     for li in range(tarr["n_levels"]):
         u = tarr["u_rows"][tarr["u_off"][li]:tarr["u_off"][li + 1]]
         c = tarr["c_rows"][tarr["c_off"][li]:tarr["c_off"][li + 1]]
         np_ = tarr["p_off"][li + 1] - tarr["p_off"][li]
-        muls += int((tarr["a1"][u] != 0).sum() + (tarr["a2"][u] != 0).sum() +
-                    np_ * (tarr["dmat"] != 0).sum() +
-                    (tarr["b1"][c] != 0).sum() + (tarr["b2"][c] != 0).sum() +
-                    (tarr["b3"][c] != 0).sum())
+        terms = [tarr["a1"][u], tarr["a2"][u], tarr["b1"][c], tarr["b2"][c],
+                 tarr["b3"][c]]
+        muls += int(np_ * (tarr["dmat"] != 0).sum() +
+                    sum((t != 0).sum() for t in terms))
+        # set coefficient bits: the bit-sliced kernel XORs 8 plane words each
+        bits += int(np_ * np.unpackbits(tarr["dmat"]).sum() +
+                    sum(np.unpackbits(t).sum() for t in terms))
     nbytes = (int(tarr["load"].sum()) + tarr["e"]) * ssc * L
     bound, by = _bound(nbytes, 128 * muls * L, hbm)
     x2, mat2 = st["x2"], st["mat2"]
+    check(torch.equal(tkern(c_full), tfn.plain(c_full)[sorted(key)]),
+          "B4 wrapper differs from plain")
+    # through the entry point (the span PREV_B4_MS was taken on), the
+    # wrapper alone, and the profiler's device time of the kernel
     ms = time_cuda(lambda: tfn(c_full), 10) * 1e3
-    out["b4"] = {"ms": ms, "GBps": 10 * ssc * L / ms / 1e6,
+    out["b4"] = {"ms": ms, "prev_ms": PREV_B4_MS,
+                 "wrapper_ms": time_cuda(lambda: tkern(c_full), 10) * 1e3,
+                 "device_ms": device_ms(lambda: tkern(c_full),
+                                        kernel="clay_transform_kernel"),
+                 "GBps": 10 * ssc * L / ms / 1e6,
                  "plain_ms": time_cuda(lambda: tfn.plain(c_full), 1, 3) * 1e3,
                  "library_ms": time_cuda(
                      lambda: gf_torch.matvec(mat2, x2), 1, 3) * 1e3,
-                 "bound_ms": bound, "bound_by": by, "gf_muls_per_lane": muls,
-                 "levels": tarr["n_levels"], "erased_nodes": sorted(key)}
+                 "bound_ms": bound, "bound_by": by,
+                 "xor_floor_ms": 8 * bits * L / 32 / H100_INT32_OPS_PER_S
+                 * 1e3,
+                 "gf_muls_per_lane": muls, "coef_bits": bits,
+                 "levels": tarr["n_levels"], "erased_nodes": sorted(key),
+                 "launch_plan": clay_cuda.transform_plan(
+                     L, tkern.qt, tkern.ssc,
+                     clay_cuda._sm_count(dev))._asdict()}
     # B5: decode-2, decode-1 and repair matrices of the main path
     mats = {"decode-2": (mat2, x2)}
     avail1 = tuple(range(1, 12))
@@ -654,8 +680,9 @@ def clay_phases(dev, hbm, smi) -> list:
              "pass": True,
              **({"launches_by_lanes": by_lanes[key]} if key in by_lanes
                 else {}),
-             **({"wrapper_ms": m["wrapper_ms"], "device_ms": m["device_ms"],
-                 "per_stripe": {k: v for k, v in m["per_stripe"].items()
+             **({"wrapper_ms": m["wrapper_ms"], "device_ms": m["device_ms"]}
+                if key in ("clay_encode", "clay_transform") else {}),
+             **({"per_stripe": {k: v for k, v in m["per_stripe"].items()
                                 if k != "prev_ms"}}
                 if key == "clay_encode" else {})}
             for name, key, src, ref, err, m in rows]

@@ -11,7 +11,9 @@ the JAX package's (ceph_tpu.models.clay, .clay_device).
 - the flat tables the CUDA kernels B3 and B4 read are replayed by numpy
   emulations of the kernels' loops and must give the plain versions'
   bytes (the kernels themselves run only on the card:
-  tests/test_torch_cuda.py);
+  tests/test_torch_cuda.py); the bit-sliced B3 and B4 are replayed with
+  their thread partitions and launch plans, B4's also against the
+  reference transform;
 - the codec (encode, every 1- and 2-erasure decode, single-node repair)
   on every backend route, ``ec_util`` with Clay, and
   ``from_reference_profile``, against the reference codec.
@@ -477,6 +479,280 @@ def test_b4_kernel_tables_replay_to_plain(profile, lost):
     for ch in lost:
         assert np.array_equal(want[er.index(port._node_id(ch))].reshape(-1),
                               full[ch])
+
+
+def _mul_uniform(acc, x, c):
+    """acc ^= c * x along the chain, a branch per set bit of c (c the same
+    for the whole warp)."""
+    for b in range(8):
+        if int(c) >> b == 0:
+            break
+        if b:
+            x = _xtime8(x)
+        if (int(c) >> b) & 1:
+            acc = acc ^ x
+    return acc
+
+
+def _emulate_transform_bitsliced(arr, cin, plan):
+    """csrc/clay_transform.cu (bit-sliced) in numpy, tile and block size
+    from ``plan`` (clay_cuda.transform_plan), phase-1 and phase-2 items
+    from clay_cuda.transform_items: the load (32 lanes per group, zero past
+    L, surviving rows transposed once, erased C and U zero), the three
+    phases of every level with their thread partitions replayed warp by
+    warp and item by item (phases 1 and 2 in whole warps, each coefficient
+    masked up to the highest set bit over the warp's; MDS items per erased
+    row padded to whole warps, j uniform in each and dmat's bits applied by
+    uniform branches), the state in the kernel's
+    shared-memory layout ((row, group) as two swizzled 16-byte halves), and
+    phase 2's stores of each erased row (to its item's output row) as it
+    computes it. Lanes are vectorized over the blocks. Within a phase no item
+    reads a row another item writes (other than C read times a zero
+    coefficient, which the kernel replaces by the item's own row), and no
+    row is written twice."""
+    qt, ssc, kk, e = arr["qt"], arr["ssc"], arr["kk"], arr["e"]
+    R, L = qt * ssc, cin.shape[-1]
+    G, T, blocks = plan.groups, plan.threads, plan.blocks
+    assert T % 32 == 0 and blocks * G * 32 >= L > (blocks - 1) * G * 32
+    assert plan.smem == 2 * R * 32 * G
+    u_items, c_items = clay_cuda.transform_items(arr)
+    pad = np.zeros((R, blocks * G * 32), dtype=np.uint8)
+    pad[:, :L] = cin.reshape(R, L)
+    words = pad.view("<u4").reshape(R, blocks, G, 8)
+    # [blocks, R*G*2 halves, 4 words], half h of (row, group) i at 2i + h
+    # ^ (bit 2 of i)
+    cs = np.zeros((blocks, 2 * R * G, 4), dtype=np.uint32)
+    us = np.zeros_like(cs)
+
+    def slot(r, g, h):
+        i = r * G + g
+        return 2 * i + (h ^ ((i >> 2) & 1))
+
+    def get(s, r, g):
+        return np.concatenate([s[:, slot(r, g, 0)], s[:, slot(r, g, 1)]],
+                              axis=-1)
+
+    def put(s, r, g, x):
+        s[:, slot(r, g, 0)], s[:, slot(r, g, 1)] = x[:, :4], x[:, 4:]
+
+    def warps(n):
+        """Items 0..n-1 as the block's warps take them: thread t the items
+        t, t + T, ...; a warp's 32 threads 32 consecutive items."""
+        for w0 in range(0, T, 32):
+            for base in range(w0, n, T):
+                yield range(base, min(base + 32, n))
+
+    class Phase:
+        """Reads and writes of one phase, by (array, row, group) and
+        item."""
+
+        def __init__(self):
+            self.reads, self.writes = {}, {}
+
+        def read(self, s, r, g, it):
+            self.reads.setdefault((s, r, g), set()).add(it)
+
+        def write(self, s, r, g, it):
+            assert (s, r, g) not in self.writes
+            self.writes[(s, r, g)] = it
+
+        def check(self):
+            for key, it in self.writes.items():
+                assert self.reads.get(key, {it}) <= {it}, key
+
+    def zero():
+        return np.zeros((blocks, 8), dtype=np.uint32)
+
+    def items_phase(items, off, li, body):
+        """One phase-1 or phase-2 pass: body(item, it, tops) per live lane,
+        tops the highest set bit of each coefficient over the warp's."""
+        n = (off[li + 1] - off[li]) * G
+        lvl = items[off[li]:off[li + 1]]
+        for warp in warps(n):
+            top = np.bitwise_or.reduce([lvl[it // G][2] for it in warp])
+            tops = [int((top >> (8 * t)) & 0xFF).bit_length() - 1
+                    for t in range(3)]
+            for it in warp:
+                body(lvl[it // G], it, tops)
+
+    done = set()
+    for warp in warps(R * G):
+        for it in warp:
+            r, g = divmod(it, G)
+            done.add(it)
+            put(us, r, g, zero())
+            put(cs, r, g, _transpose8(words[r, :, g])
+                if arr["load"][r // ssc] else zero())
+    assert done == set(range(R * G))
+    out = np.zeros((e * ssc, blocks, G, 8), dtype=np.uint32)
+    stored = set()
+    for li in range(arr["n_levels"]):
+        ph = Phase()
+
+        def phase1(t, it, tops):
+            r, pair, k = int(t[0]), int(t[1]), int(t[2])
+            g = it % G
+            ph.read("C", r, g, it)
+            v = _mul_acc(zero(), get(cs, r, g), k & 0xFF, tops[0])
+            if k >> 8:
+                ph.read("C", pair, g, it)
+                v = _mul_acc(v, get(cs, pair, g), k >> 8, tops[1])
+            ph.write("U", r, g, it)
+            put(us, r, g, v)
+
+        items_phase(u_items, arr["u_off"], li, phase1)
+        ph.check()
+        ph = Phase()
+        p0, p1 = arr["p_off"][li], arr["p_off"][li + 1]
+        n_p = (p1 - p0) * G
+        seg = (n_p + 31) // 32 * 32
+        for warp in warps(e * seg):
+            j = warp[0] // seg
+            for it in warp:
+                pg = it - j * seg
+                assert 0 <= pg < seg
+                if pg >= n_p:
+                    continue
+                g = pg % G
+                z = arr["planes"][p0 + pg // G]
+                acc = zero()
+                for c in range(kk):
+                    r = arr["intact"][c] * ssc + z
+                    ph.read("U", r, g, it)
+                    acc = _mul_uniform(acc, get(us, r, g), arr["dmat"][j, c])
+                ph.write("U", arr["er"][j] * ssc + z, g, it)
+                put(us, arr["er"][j] * ssc + z, g, acc)
+        ph.check()
+        ph = Phase()
+
+        def phase2(t, it, tops):
+            r, pr, k = int(t[0]), int(t[1]), int(t[2])
+            k1, k2, k3 = k & 0xFF, (k >> 8) & 0xFF, k >> 16
+            g = it % G
+            v = zero()
+            if k1:
+                ph.read("C", pr, g, it)
+                v = _mul_acc(v, get(cs, pr, g), k1, tops[0])
+            if k2:
+                ph.read("U", r, g, it)
+                v = _mul_acc(v, get(us, r, g), k2, tops[1])
+            if k3:
+                ph.read("U", pr, g, it)
+                v = _mul_acc(v, get(us, pr, g), k3, tops[2])
+            ph.write("C", r, g, it)
+            put(cs, r, g, v)
+            assert (t[3], g) not in stored
+            stored.add((t[3], g))
+            out[t[3], :, g] = _transpose8(v)
+
+        items_phase(c_items, arr["c_off"], li, phase2)
+        ph.check()
+    assert len(stored) == e * ssc * G
+    return out.reshape(e * ssc, -1).view(np.uint8)[:, :L].reshape(
+        e, ssc, L)
+
+
+#: ragged lane counts: one lane; 70 lanes, 2 blocks of 2 lane groups (the
+#: committed plan), the last past L, and one block of 4 groups
+B4_REPLAY_L = (1, 70)
+
+
+@pytest.mark.parametrize("profile,lost", [
+    (FLAGSHIP, [0, 1]), (FLAGSHIP, [3]), (FLAGSHIP, [0, 5, 8, 11]),
+    (VIRTUAL, [0, 1, 2]), (VIRTUAL, [4, 6]), (SMALL, [1, 4]), (SMALL, [5]),
+])
+def test_b4_bitsliced_replay_equals_plain_and_reference(profile, lost):
+    """The bit-sliced kernel's arithmetic and thread partition, replayed
+    on the CPU under the committed plan and under 4 lane groups in blocks
+    of 128 threads, gives build_transform's and the reference transform's
+    bytes, and recovers the lost chunks."""
+    ref, port = ref_codec(profile), port_codec(profile)
+    erased = _padded_erased(port, lost)
+    arr = cd.transform_kernel_arrays(port, erased)
+    plain = cd.build_transform(port, erased)
+    er = sorted(erased)
+    for L in B4_REPLAY_L:
+        full = _full(port, _data(port, L, 47 + L))
+        chunks = {i: b for i, b in full.items() if i not in lost}
+        cin = _node_input(port, chunks, erased, L)
+        want = plain(torch.from_numpy(cin)).numpy()[er]
+        ref_out = np.asarray(ref_cd.ClayDeviceCodec(ref).transform(
+            erased, cin))[er]
+        assert np.array_equal(want, ref_out), L
+        for plan in (clay_cuda.transform_plan(L, arr["qt"], arr["ssc"], 0),
+                     clay_cuda.transform_plan(L, arr["qt"], arr["ssc"], 0,
+                                              groups=4, threads=128)):
+            got = _emulate_transform_bitsliced(arr, cin, plan)
+            assert np.array_equal(got, want), (L, plan)
+        for ch in lost:
+            assert np.array_equal(got[er.index(port._node_id(ch))]
+                                  .reshape(-1), full[ch]), (L, ch)
+
+
+def test_b4_transform_plan_least_grid_and_refuses_oversize():
+    """transform_plan covers L with the least grid of its tile, 256 threads
+    a lane group unless told otherwise, halves the tile where the grid
+    would leave SMs idle or the state would not fit a block, and refuses a
+    signature whose state per lane group exceeds a block's shared
+    memory."""
+    state = 64 * 12 * 64              # k=8,m=4,d=11: C and U, 48 KiB
+    for L in (1, 31, 32, 33, 4097, 1 << 18):
+        for sms in (0, 132):
+            plan = clay_cuda.transform_plan(L, 12, 64, sms)
+            tile = 32 * plan.groups
+            assert plan.blocks * tile >= L > (plan.blocks - 1) * tile, L
+            assert plan.smem == state * plan.groups <= clay_cuda.MAX_SMEM
+            assert plan.threads == 256 * plan.groups
+    assert clay_cuda.transform_plan(1 << 18, 12, 64, 132) == \
+        clay_cuda.TransformPlan(2, 512, 4096, 2 * state)
+    # 64 blocks of 2 groups would idle SMs of 132; sms=0 keeps the tile
+    assert clay_cuda.transform_plan(4096, 12, 64, 132) == \
+        clay_cuda.TransformPlan(1, 256, 128, state)
+    assert clay_cuda.transform_plan(4096, 12, 64, 0) == \
+        clay_cuda.TransformPlan(2, 512, 64, 2 * state)
+    # 8 groups of 48 KiB exceed a block
+    assert clay_cuda.transform_plan(1 << 18, 12, 64, 0, groups=8,
+                                    threads=512).groups == 4
+    assert clay_cuda.transform_plan(4097, 6, 8, 64, groups=4,
+                                    threads=128) == \
+        clay_cuda.TransformPlan(2, 128, 65, 2 * 64 * 48)
+    with pytest.raises(ValueError):
+        clay_cuda.transform_plan(64, 12, clay_cuda.MAX_SMEM // 768 + 1, 132)
+
+
+def test_b4_transform_items_keep_levels_and_rows():
+    """transform_items keeps each level's phase-1 and phase-2 rows (in
+    coefficient order) with their partners and coefficients, and gives
+    each phase-2 row (an erased node's, every one once) its output row."""
+    port = port_codec(FLAGSHIP)
+    arr = cd.transform_kernel_arrays(port, _padded_erased(port, [0, 1]))
+    u_items, c_items = clay_cuda.transform_items(arr)
+    for items, rows, off, partner, names in (
+            (u_items, arr["u_rows"], arr["u_off"], arr["pair"],
+             ("a1", "a2")),
+            (c_items, arr["c_rows"], arr["c_off"], arr["p2"],
+             ("b1", "b2", "b3"))):
+        assert items.shape == (len(rows), 4) and items.dtype == np.int32
+        for li in range(arr["n_levels"]):
+            lvl = items[off[li]:off[li + 1]]
+            assert sorted(lvl[:, 0]) == sorted(rows[off[li]:off[li + 1]])
+            assert (np.diff(lvl[:, 2]) >= 0).all()
+        r = items[:, 0]
+        assert np.array_equal(items[:, 1], partner[r])
+        assert np.array_equal(items[:, 2], sum(
+            arr[name][r].astype(np.int32) << (8 * i)
+            for i, name in enumerate(names)))
+    assert not u_items[:, 3].any()
+    # by_coef=False: the same items in the lists' own order
+    for items, ordered, rows in zip(
+            clay_cuda.transform_items(arr, by_coef=False),
+            (u_items, c_items), (arr["u_rows"], arr["c_rows"])):
+        assert np.array_equal(items[:, 0], rows)
+        assert sorted(map(tuple, items)) == sorted(map(tuple, ordered))
+    er, ssc = list(arr["er"]), arr["ssc"]
+    assert sorted(c_items[:, 3]) == list(range(len(er) * ssc))
+    assert np.array_equal(c_items[:, 3], [er.index(r // ssc) * ssc + r % ssc
+                                          for r in c_items[:, 0]])
 
 
 # -- the codec ----------------------------------------------------------

@@ -203,6 +203,34 @@ def test_clay_transform_kernel_matches_plain(cuda, profile):
             assert torch.equal(got, fn.plain(x)[sorted(erased)]), (lost, L)
 
 
+@pytest.mark.parametrize("profile", CLAY_PROFILES,
+                         ids=["k8m4d11", "k4m2", "k4m3d6"])
+def test_clay_transform_kernel_full_size_and_unaligned_match_plain(
+        cuda, profile):
+    """B4 at the main path's 2^18 lanes (16-byte path) and from an input
+    pointer one byte off alignment (byte path), every e, each launch
+    counted."""
+    codec = _clay(profile, cuda)
+    n, qt, ssc = codec.k + codec.m, codec.q * codec.t, codec.sub_chunk_no
+    clay_cuda.reset_launches()
+    calls = 0
+    for e in range(1, codec.m + 1):
+        lost = list(range(0, n, max(1, n // e)))[:e]
+        erased = codec._pad_erased(codec._node_id(i) for i in lost)
+        er = sorted(erased)
+        fn = clay_device.build_transform_kernel(codec, erased)
+        buf = torch.from_numpy(_bytes(e, qt * ssc * 4096 + 1)).to(cuda)
+        for x in (torch.from_numpy(_bytes(e, qt, ssc, 1 << 18)).to(cuda),
+                  buf[1:].view(qt, ssc, 4096)):
+            x[er] = 0
+            x[codec.k:codec.k + codec.nu] = 0
+            got = fn(x)
+            calls += 1
+            torch.cuda.synchronize()
+            assert torch.equal(got, fn.plain(x)[er]), (lost, x.shape)
+    assert clay_cuda.transform_launches == calls
+
+
 def test_block_sparse_kernel_matches_plain(cuda):
     codec = _clay(CLAY_PROFILES[0], "cpu")
     rng = np.random.default_rng(5)
