@@ -17,7 +17,10 @@ Phases, each printing one JSON line:
    byte-exact, over ragged shapes, decode matrices and a 32x128 matrix;
    B1 also over random k=8 matrices of 4, 5, 16, 17 and 32 rows (with
    the RS matrices, its 2-, 4- and 16-row templates, one and two passes)
-   and from a pointer one byte off alignment (its byte path);
+   and from a pointer one byte off alignment (its byte path); B2 also at
+   its tile's edges (rows a warp reduces together, +- 1), one grid-stride
+   round of its grid and past it, and from a pointer one byte off
+   alignment, which must raise;
 4. main path, at the north-star benchmark's size (bench.py:47-49): the
    ISA ``reed_sol_van`` k=8, m=3 codec, 128 objects of 1 MiB (128 MiB per
    flush), stripe unit 4096 B. ``StripeBatcher.flush(with_crcs=True)`` on
@@ -31,9 +34,14 @@ Phases, each printing one JSON line:
    each held against its plain version and timed through the entry point
    (``ms``, beside the split-nibble design's ``prev_ms``) and as the
    profiler's device time of the kernel (``device_ms``); B2 on the main
-   path's rows; each beside its plain version and its bound,
-   and the fused flush's wall time, with a torch.profiler breakdown of
-   one flush (device busy share, top device and host entries);
+   path's rows, held against its plain version there and timed through
+   the entry point (``b2_ms``, beside the thread-per-row design's
+   ``b2_prev_ms``), through its C launcher (``b2_wrapper_ms``) and as the
+   profiler's device time (``b2_device_ms``); each beside its plain
+   version and its bound; the stage-2 combine of the flush's 1408 x 256
+   row crcs (``stage2_combine``: events and device time, held against the
+   CPU); and the fused flush's wall time, with a torch.profiler breakdown
+   of one flush (device busy share, top device and host entries);
 6. Clay kernels against their plain versions on the card, byte-exact: B3
    and B4 over k=8,m=4,d=11, k=4,m=2 and k=4,m=3,d=6 (virtual nodes) at
    ragged L (B3 also at 64 and 32 Ki lanes, its short form; B3 and B4 from
@@ -175,6 +183,10 @@ PREV_B3_MS = {"full": 0.7168, "64 lanes": 0.1174}
 #: this script's phase 8 (NVIDIA H100 80GB HBM3, 700.00 W; through the
 #: entry point), printed beside the new time as ``prev_ms``
 PREV_B4_MS = 1.4534
+#: B2 time of the thread-per-row design the warp-per-row kernel replaced,
+#: ms, from this script's phase 5 (NVIDIA H100 80GB HBM3, 700.00 W; through
+#: the entry point), printed beside the new time as ``b2_prev_ms``
+PREV_B2_MS = 0.1953
 
 
 def emit(obj) -> None:
@@ -974,14 +986,29 @@ def main() -> int:
         gf_cuda.matvec_device(isa, torch.from_numpy(small).to(dev)).cpu()
         .numpy(), gf256.gf_matvec_chunks(isa, small)), "B1 vs host oracle")
     main_rows = OBJECTS * (K + M) * (OBJECT_BYTES // K) // 512
+    # B2's tile (rows a warp reduces together) +- 1, one grid-stride round
+    # of its one-block-an-SM grid and past it
+    tile = crc32c_cuda.ROWS
+    wrap = torch.cuda.get_device_properties(dev).multi_processor_count * \
+        crc32c_cuda.THREADS // 32 * tile
+    b2_rows = (1, tile - 1, tile, tile + 1, 1000, 65536 + 3, wrap, wrap + 1,
+               2 * wrap + tile + 3, main_rows)
     b2_err, b2_cases = 0, 0
-    for rows in (1, 7, 1000, 65536 + 3, main_rows):
+    for rows in b2_rows:
         x = torch.randint(0, 256, (rows, 512), dtype=torch.uint8, device=dev)
         got = crc32c_cuda.crc_rows(x)
         torch.cuda.synchronize()
         err = max_err(got, crc32c_torch.crc_rows(x))
         check(err == 0, f"B2 rows={rows} differs from plain")
         b2_err, b2_cases = max(b2_err, err), b2_cases + 1
+    raw = torch.zeros(4 * 512 + 1, dtype=torch.uint8, device=dev)
+    try:
+        crc32c_cuda.crc_rows(raw[1:].view(4, 512))
+        b2_unaligned = "launched"
+    except ValueError as exc:
+        b2_unaligned = f"raised: {exc}"
+    check(b2_unaligned.startswith("raised"),
+          "B2 took a pointer one byte off alignment")
     xs = rng.integers(0, 256, (33, 512), dtype=np.uint8)
     want = checksum.crc32c_rows(xs, 0) ^ np.uint32(crc32c_torch.zeros_crc(512, 0))
     check(crc32c_cuda.crc_rows(torch.from_numpy(xs).to(dev)).cpu().tolist()
@@ -990,7 +1017,8 @@ def main() -> int:
           "gf_matvec_n": list(B1_N) + ["offset 4096"],
           "gf_matvec_cases": b1_cases,
           "gf_matvec_max_abs_err": b1_err, "crc32c_rows_cases": b2_cases,
-          "crc32c_rows_max_abs_err": b2_err, "tolerance": 0})
+          "crc32c_rows_max_abs_err": b2_err, "crc32c_rows_rows": b2_rows,
+          "crc32c_rows_unaligned": b2_unaligned, "tolerance": 0})
 
     # -- 4. main path ----------------------------------------------------
     codec = instance().factory(
@@ -1099,11 +1127,42 @@ def main() -> int:
     del data
     rows_x = torch.randint(0, 256, (main_rows, 512), dtype=torch.uint8,
                            device=dev, generator=gen_t)
+    # B2 through the entry point (the span PREV_B2_MS was taken on), its C
+    # launcher alone into a preallocated output, and the profiler's device
+    # time of the kernel; held against plain at this shape
     b2_s = time_cuda(lambda: crc32c_cuda.crc_rows(rows_x), 20)
+    plain_rows = crc32c_torch.crc_rows(rows_x)
+    check(torch.equal(crc32c_cuda.crc_rows(rows_x), plain_rows),
+          "B2 at the timed shape differs from plain")
+    del plain_rows
+    b2_lib, b2_fn = crc32c_cuda._lib()
+    b2_out = torch.empty(main_rows, dtype=torch.int64, device=dev)
+    b2_args = (rows_x.data_ptr(),
+               crc32c_cuda._basis().on(dev)["basis"].data_ptr(),
+               b2_out.data_ptr(), main_rows,
+               torch.cuda.current_stream(dev).cuda_stream)
+    b2_wrapper_s = time_cuda(lambda: cuda_build.check(
+        b2_lib, b2_fn(*b2_args), "crc32c_rows launch"), 20)
+    b2_dev_ms = device_ms(lambda: crc32c_cuda.crc_rows(rows_x),
+                          kernel="crc32c_rows_kernel")
     plain_b2 = time_cuda(lambda: crc32c_torch.crc_rows(rows_x), 2, 3)
-    b2_bound_bytes = main_rows * (512 + 4) / hbm
+    # 512 bytes read and one int64 written a row
+    b2_bound_bytes = main_rows * (512 + 8) / hbm
     b2_bound_ops = 2 * 4096 * 32 * main_rows / H100_INT8_OPS_PER_S
-    del rows_x
+    del rows_x, b2_out
+    # stage 2: the fused flush's combine of 1408 segments of 256 rows
+    n_seg, seg_rows = OBJECTS * (K + M), OBJECT_BYTES // K // 512
+    rowc = torch.randint(0, 1 << 32, (n_seg, seg_rows), dtype=torch.int64,
+                         device=dev, generator=gen_t)
+    check(torch.equal(crc32c_torch.combine_rows(rowc).cpu(),
+                      crc32c_torch.combine_rows(rowc.cpu())),
+          "stage-2 combine on the card differs from the CPU")
+    stage2 = {"shape": [n_seg, seg_rows],
+              "ms": time_cuda(lambda: crc32c_torch.combine_rows(rowc),
+                              20) * 1e3,
+              "device_ms": device_ms(
+                  lambda: crc32c_torch.combine_rows(rowc), kernel="")}
+    del rowc
     walls = []
     torch.cuda.reset_peak_memory_stats(dev)
     for _ in range(3):
@@ -1116,10 +1175,12 @@ def main() -> int:
           "b1_resident_bytes": K * RESIDENT_LANES, "b1": timings,
           "b1_plain_ms": plain_b1 * 1e3,
           "b1_bound_ms": max(b1_bound_bytes, b1_bound_ops) * 1e3,
-          "b2_rows": main_rows, "b2_ms": b2_s * 1e3,
+          "b2_rows": main_rows, "b2_ms": b2_s * 1e3, "b2_prev_ms": PREV_B2_MS,
+          "b2_wrapper_ms": b2_wrapper_s * 1e3, "b2_device_ms": b2_dev_ms,
           "b2_GBps": main_rows * 512 / b2_s / 1e9,
           "b2_plain_ms": plain_b2 * 1e3,
           "b2_bound_ms": max(b2_bound_bytes, b2_bound_ops) * 1e3,
+          "stage2_combine": stage2,
           "fused_flush_s": flush_s, "fused_flush_runs_s": walls,
           "fused_flush_GBps": OBJECTS * OBJECT_BYTES / flush_s / 1e9,
           "fused_flush_peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
@@ -1162,7 +1223,8 @@ def main() -> int:
          "bound_ms": max(b2_bound_bytes, b2_bound_ops) * 1e3,
          "bound_by": "bytes" if b2_bound_bytes >= b2_bound_ops
          else "operations",
-         "library_ms": None, "pass": True},
+         "library_ms": None, "pass": True,
+         "wrapper_ms": b2_wrapper_s * 1e3, "device_ms": b2_dev_ms},
     ] + clay + [
         {"name": "gf_xor (B6)", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/gf_xor.cu",

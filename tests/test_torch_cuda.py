@@ -108,6 +108,30 @@ def test_crc_rows_kernel_matches_plain(cuda):
     assert crc32c_cuda.launches == 4
 
 
+def test_crc_rows_kernel_tile_edges_full_size_and_unaligned(cuda):
+    """B2 at its tile's edges (rows a warp reduces together, +- 1), past
+    one grid-stride round of its one-block-an-SM grid, at the fused
+    flush's 360,448 rows, and from a pointer one byte off alignment
+    (refused before any launch)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    tile = crc32c_cuda.ROWS
+    wrap = sms * crc32c_cuda.THREADS // 32 * tile
+    cases = (tile - 1, tile, tile + 1, wrap, wrap + 1, 2 * wrap + tile + 3,
+             128 * 11 * 256)
+    crc32c_cuda.reset_launches()
+    for rows in cases:
+        x = torch.from_numpy(_bytes(rows, rows, 512)).to(cuda)
+        got = crc32c_cuda.crc_rows(x)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int64
+        assert torch.equal(got, crc32c_torch.crc_rows(x)), rows
+    assert crc32c_cuda.launches == len(cases)
+    raw = torch.zeros(4 * 512 + 1, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        crc32c_cuda.crc_rows(raw[1:].view(4, 512))
+    assert crc32c_cuda.launches == len(cases)
+
+
 def test_linear_crc_on_cuda_matches_host(cuda):
     from ceph_tpu_torch.utils import checksum
     for length in (1, 511, 512, 513, 4096 + 7):
