@@ -9,16 +9,20 @@ For matrix codecs the position-wise math lets S stripes fold into one
 ``HashInfo`` is the cumulative per-shard crc xattr (ECUtil.h:101-162).
 
 The fused flush (:func:`_flush_device_fused_async`) is the write path's
-device program: upload the batch once, run kernel B1 for parity, cut every
-op's per-shard segment from the same device tensors, run kernel B2 on the
-segments, and download parity plus 4 bytes of crc per shard. It runs on
-its own CUDA stream; ``finalize()`` waits on an event. The multi-device
-mesh flush is not part of this module yet: a mesh raises.
+device program: upload the batch once, transpose it to shard-major on the
+device, and run the device step (:func:`fused_step`): kernel B1 for
+parity, every op's per-shard segment cut from the same device tensors,
+kernel B2 on the segments; ``finalize()`` then downloads the data shards,
+parity and 8 bytes of crc per shard into pinned memory. It runs on the
+caller's current stream (the device engine launches each flush inside
+its window slot's side stream). The multi-device mesh flush is not part
+of this module yet: a mesh raises.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from contextlib import nullcontext
 from dataclasses import dataclass
 
@@ -30,6 +34,7 @@ from ceph_tpu_torch.models.matrix_codec import MatrixErasureCode
 from ceph_tpu_torch.ops import backend as backend_mod
 from ceph_tpu_torch.ops import crc32c_torch, gf256
 from ceph_tpu_torch.utils import checksum
+from ceph_tpu_torch.utils.device_telemetry import telemetry
 
 #: initial per-shard crc seed (the reference seeds with -1, ECUtil.h:117)
 HINFO_SEED = 0xFFFFFFFF
@@ -130,6 +135,26 @@ def encode(sinfo: StripeInfo, codec, data: bytes | np.ndarray,
     return out
 
 
+def xor_decodable(codec, shards: dict[int, np.ndarray],
+                  missing: list[int]) -> bool:
+    """True when reconstructing ``missing`` from ``shards`` reduces to
+    bitwise XOR: the decode matrix of this erasure signature has only 0/1
+    coefficients, so ``decode_chunks`` takes its host XOR path and no
+    device launch. Mirrors decode_chunks' survivor selection (sorted,
+    first k). Port of the reference's ``xor_decodable``."""
+    if not missing or not isinstance(codec, MatrixErasureCode):
+        return False
+    have = sorted(shards)
+    k = codec.get_data_chunk_count()
+    if len(have) < k:
+        return False
+    try:
+        dmat = codec._decode_matrix(tuple(have[:k]), tuple(missing))
+    except Exception:          # a singular signature: not XOR-decodable
+        return False
+    return bool(((dmat == 0) | (dmat == 1)).all())
+
+
 def decode(sinfo: StripeInfo, codec, shards: dict[int, np.ndarray],
            want: list[int]) -> dict[int, np.ndarray]:
     """Reconstruct wanted shards from surviving per-shard buffers
@@ -216,15 +241,26 @@ class StripeBatcher:
     batched call and returns per-op shard buffers in submission order."""
 
     def __init__(self, sinfo: StripeInfo, codec,
-                 flush_bytes: int = 8 << 20, mesh=None) -> None:
+                 flush_bytes: int = 8 << 20, mesh=None,
+                 on_fallback=None) -> None:
         if mesh is not None:
             raise NotImplementedError(
                 "the multi-device mesh flush is not ported yet")
         self.sinfo = sinfo
         self.codec = codec
         self.flush_bytes = flush_bytes
+        #: on_fallback(path, exc): the reference calls it when a fused
+        #: flush failed and the batch re-ran on the plain path (the
+        #: engine counts it). The port has no such fallback — a failed
+        #: fused flush raises — so it is stored and never called.
+        self.on_fallback = on_fallback
         self._pending: list[tuple[object, np.ndarray]] = []
         self._pending_bytes = 0
+        #: zero-copy staging: when every appended buffer is an adjacent
+        #: view into ONE contiguous array (the engine's concat buffer),
+        #: the caller hands that array here and flush skips its own
+        #: np.concatenate
+        self._preconcat: np.ndarray | None = None
 
     def append(self, op_id, data: bytes | np.ndarray) -> None:
         buf = np.frombuffer(bytes(data), dtype=np.uint8) \
@@ -234,6 +270,14 @@ class StripeBatcher:
                 f"append: {len(buf)} bytes not stripe-aligned")
         self._pending.append((op_id, buf))
         self._pending_bytes += len(buf)
+
+    def set_preconcat(self, batch: np.ndarray | torch.Tensor) -> None:
+        """Declare that every appended buffer is a view into ``batch``
+        in append order (total length must match); flush then uses
+        ``batch`` directly instead of concatenating. ``batch`` is a 1-D
+        uint8 numpy array, or a pinned 1-D uint8 tensor (the engine's
+        stager buffers), which the fused flush uploads asynchronously."""
+        self._preconcat = batch
 
     def should_flush(self) -> bool:
         return self._pending_bytes >= self.flush_bytes
@@ -254,12 +298,18 @@ class StripeBatcher:
         if not self._pending:
             return lambda: []
         ops, bufs = zip(*self._pending)
+        batch = self._preconcat
+        if batch is not None and len(batch) != sum(len(b) for b in bufs):
+            batch = None           # caller's contract broken: re-copy
         self._pending, self._pending_bytes = [], 0
+        self._preconcat = None
         if with_crcs and _device_fusable(self.codec) and \
                 _fused_fits(self.sinfo, self.codec, bufs):
             return _flush_device_fused_async(self.sinfo, self.codec,
-                                             ops, bufs)
-        shards = encode(self.sinfo, self.codec, np.concatenate(bufs))
+                                             ops, bufs, batch=batch)
+        if batch is None:
+            batch = np.concatenate(bufs)
+        shards = encode(self.sinfo, self.codec, _host_batch(batch))
         results = []
         cs, sw = self.sinfo.chunk_size, self.sinfo.stripe_width
         off = 0  # in chunk units per shard
@@ -319,6 +369,11 @@ def fuse_crc_policy(codec) -> bool:
         bool(os.environ.get("CEPH_TPU_FUSE_CRC"))
 
 
+def _host_batch(batch) -> np.ndarray:
+    """A staged batch as host numpy (a pinned tensor's own view)."""
+    return batch.numpy() if isinstance(batch, torch.Tensor) else batch
+
+
 def _split_results(ops, lens, k, data_shards, parity, lin):
     results = []
     off = 0
@@ -342,6 +397,7 @@ def flush_host_async(sinfo: StripeInfo, codec, ops, bufs, batch=None):
     lens = [len(b) // sw * cs for b in bufs]
     if batch is None:
         batch = np.concatenate(bufs)
+    batch = _host_batch(batch)
 
     def finalize():
         data_shards = _data_shards(batch, sinfo, k)
@@ -355,62 +411,119 @@ def _segments(data_dev: torch.Tensor, parity: torch.Tensor, lens,
               lmax: int) -> torch.Tensor:
     """[nops * n_chunks, lmax] uint8: row (op, shard) holds that op's
     segment of the shard at its END, front-zero-padded — free under crc
-    linearity, so every row's linear crc is its segment's."""
+    linearity, so every row's linear crc is its segment's. Each run of
+    consecutive ops of one length is cut with one copy a tensor (two for
+    a batch of equal ops, instead of two an op)."""
     k, m = data_dev.shape[0], parity.shape[0]
-    segs = torch.zeros((len(lens), k + m, lmax), dtype=torch.uint8,
-                       device=data_dev.device)
-    off = 0
-    for i, ln in enumerate(lens):
-        segs[i, :k, lmax - ln:] = data_dev[:, off:off + ln]
-        segs[i, k:, lmax - ln:] = parity[:, off:off + ln]
-        off += ln
-    return segs.reshape(len(lens) * (k + m), lmax)
+    nops = len(lens)
+    alloc = torch.empty if all(ln == lmax for ln in lens) else torch.zeros
+    segs = alloc((nops, k + m, lmax), dtype=torch.uint8,
+                 device=data_dev.device)
+    i = off = 0
+    while i < nops:
+        ln, j = lens[i], i
+        while j < nops and lens[j] == ln:
+            j += 1
+        width = (j - i) * ln
+        segs[i:j, :k, lmax - ln:] = data_dev[:, off:off + width] \
+            .view(k, j - i, ln).transpose(0, 1)
+        segs[i:j, k:, lmax - ln:] = parity[:, off:off + width] \
+            .view(m, j - i, ln).transpose(0, 1)
+        off += width
+        i = j
+    return segs.reshape(nops * (k + m), lmax)
+
+
+def fused_step(mat: np.ndarray, data_dev: torch.Tensor, lens, lmax: int,
+               backend: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused flush's device step, queued on the current stream:
+    parity[m, N] = mat (x) data_dev (kernel B1 for the ``cuda`` backend)
+    and [nops, k + m] int64 linear crc parts of every op's per-shard
+    segment (``lens``, padded to ``lmax``) from the same device tensors
+    (kernel B2 + the stage-2 combine)."""
+    parity = backend_mod.matvec(mat, data_dev, backend)
+    lin = crc32c_torch.crc_linear_device(
+        _segments(data_dev, parity, lens, lmax))
+    n_chunks = data_dev.shape[0] + parity.shape[0]
+    return parity, lin.reshape(len(lens), n_chunks)
 
 
 def _flush_device_fused_async(sinfo: StripeInfo, codec, ops, bufs,
                               batch=None):
-    """Upload the stripe batch once, encode parity (kernel B1), and take
-    every op's per-shard crc linear part (kernel B2 + the stage-2
-    combine) from the SAME device tensors; download parity plus 4 bytes
-    per shard of crcs. Returns ``finalize() -> [(op_id, shards, crcs)]``
-    with ``crcs`` the linear parts (combine with ``HashInfo.append_linear``
-    or ``crc32c_from_linear``)."""
+    """Upload the stripe batch once on the current stream of the codec's
+    device (the engine makes it a window slot's side stream), transpose it to shard-major [k, N] on the device, run
+    :func:`fused_step` (parity by kernel B1, every op's per-shard crc
+    linear part by kernel B2 + the stage-2 combine, from the SAME device
+    tensors), and return ``finalize() -> [(op_id, shards, crcs)]`` with
+    ``crcs`` the linear parts (combine with ``HashInfo.append_linear`` or
+    ``crc32c_from_linear``).
+
+    A pinned tensor ``batch`` (the engine's stager hands it so) uploads
+    asynchronously, and the copy records its event on the block in
+    PyTorch's caching host allocator, which so holds the block until the
+    upload has read it; a numpy batch is copied before this returns.
+    ``finalize`` allocates the pinned outputs (data shards,
+    parity, 8 bytes a shard of crcs) on PyTorch's caching host allocator,
+    queues their download behind the step and waits for it, so the
+    launching thread never allocates them. ``finalize`` also carries
+    ``fused_fn`` and ``staged`` (``fused_fn(*staged)`` is exactly this
+    launch's device step) and ``host_split``, the seconds of each host
+    part."""
+    t0 = time.perf_counter()
     cs, sw = sinfo.chunk_size, sinfo.stripe_width
     k = codec.get_data_chunk_count()
-    n_chunks = codec.get_chunk_count()
     lens = [len(b) // sw * cs for b in bufs]
     if not _fused_fits(sinfo, codec, bufs):
         raise ValueError("fused crc working set too large; plain flush")
     if batch is None:
         batch = np.concatenate(bufs)
-    data_shards = _data_shards(batch, sinfo, k)
-    lmax = -(-max(lens) // crc32c_torch.ROW_BYTES) * crc32c_torch.ROW_BYTES
+    s = len(batch) // sw
     device = codec.device
     on_cuda = device.type == "cuda"
-    stream = torch.cuda.Stream(device) if on_cuda else None
+    lmax = -(-max(lens) // crc32c_torch.ROW_BYTES) * crc32c_torch.ROW_BYTES
+    mat = codec.coding_matrix
+    backend = codec.resolved_backend
+    # the reference's pow2-bucketed signature form (no jit behind it)
+    lmax_b = _pow2_bucket(max(lens), max(crc32c_torch.ROW_BYTES, 1 << 12))
+    signature = (f"fused_crc[{backend}{list(mat.shape)}]"
+                 f"N{_pow2_bucket(s * cs, 1 << 14)}"
+                 f"L{lmax_b}ops{_pow2_bucket(len(lens), 1)}")
+    pinned = isinstance(batch, torch.Tensor)
+    src = batch if pinned else torch.from_numpy(batch)
+    stream = torch.cuda.current_stream(device) if on_cuda else None
     with torch.cuda.stream(stream) if on_cuda else nullcontext():
-        data_dev = torch.from_numpy(data_shards).to(device)
-        parity = backend_mod.matvec(codec.coding_matrix, data_dev,
-                                    codec.resolved_backend)
-        lin = crc32c_torch.crc_linear_device(
-            _segments(data_dev, parity, lens, lmax)).reshape(
-                len(lens), n_chunks)
-        if on_cuda:
-            parity_h = torch.empty(parity.shape, dtype=torch.uint8,
-                                   pin_memory=True)
-            lin_h = torch.empty(lin.shape, dtype=torch.int64,
-                                pin_memory=True)
-            parity_h.copy_(parity, non_blocking=True)
-            lin_h.copy_(lin, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(stream)
-        else:
-            parity_h, lin_h, done = parity, lin, None
+        flat = src.to(device, non_blocking=pinned)
+        t1 = time.perf_counter()
+        data_dev = flat.view(s, k, cs).permute(1, 0, 2).contiguous() \
+            .view(k, s * cs)
+        t2 = time.perf_counter()
+        parity, lin = telemetry().timed_call(
+            signature, fused_step, mat, data_dev, lens, lmax, backend)
+    split = {"upload_s": t1 - t0, "transpose_s": t2 - t1,
+             "launch_s": time.perf_counter() - t2}
 
     def finalize():
-        if done is not None:
+        t3 = time.perf_counter()
+        if on_cuda:
+            outs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    for t in (data_dev, parity, lin)]
+            t4 = time.perf_counter()
+            with torch.cuda.stream(stream):
+                for host, dev_t in zip(outs, (data_dev, parity, lin)):
+                    host.copy_(dev_t, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
             done.synchronize()
-        return _split_results(ops, lens, k, data_shards,
-                              parity_h.numpy(), lin_h.numpy())
+        else:
+            outs, t4 = (data_dev, parity, lin), t3
+        t5 = time.perf_counter()
+        results = _split_results(ops, lens, k,
+                                 *(t.numpy() for t in outs))
+        split.update(alloc_s=t4 - t3, wait_s=t5 - t4,
+                     split_s=time.perf_counter() - t5)
+        return results
 
+    finalize.fused_fn = fused_step
+    finalize.staged = (mat, data_dev, lens, lmax, backend)
+    finalize.host_split = split
     return finalize

@@ -1,0 +1,287 @@
+"""StageClock — the per-op data-plane stage timeline. A copy of
+``ceph_tpu/utils/stage_clock.py`` (host only); the port's engine marks
+``engine_stage_wait``, ``device_window_wait`` and ``device_finalize``.
+
+ROADMAP item 1 attributes the ~1000x daemon->engine gap to "wire/
+dispatch" — a guess, because nothing between the client's op_submit
+and ``device_engine.stage_encode`` was timestamped. A StageClock is
+the measurement: an ordered list of ``(stage, monotonic_t)`` marks
+that rides one client op end to end — created in the Objecter,
+carried INSIDE the message (the ``stages`` field, next to ``trace``),
+continued by the primary OSD, the engine, and the shard OSDs, and
+returned to the client in the reply — so one op's timeline spans
+every daemon it touched. Daemons here share one process (MiniCluster
+— the vstart model), so ``time.monotonic`` is one clock and the
+cross-daemon merge is exact; a multi-process port would need the
+usual offset handshake.
+
+Semantics: a mark NAMES THE INTERVAL THAT ENDS AT IT. The canonical
+EC-write order (``EC_WRITE_STAGES``) is::
+
+    client_submit        anchor (duration 0)
+    objecter_encode      tid alloc + MOSDOp build + CRUSH target
+    send_queue_wait      send_message() -> messenger loop picks it up
+    wire                 frame serialize + socket + remote read loop
+    dispatch_queue_wait  fast dispatch -> op-wq worker dequeue
+    pg_process           dup/blocklist/PG-lock work -> engine staging
+    engine_stage_wait    staged -> batch flush launch (batching wait)
+    device_window_wait   launch -> harvest begin (pipeline window)
+    device_finalize      blocking device compute + parity download
+    commit_wait          continuation -> every shard sub-op committed
+    commit_reply         reply serialize + wire + client wakeup
+
+Shard sub-ops carry their own child clocks (``SUBOP_STAGES``), merged
+into the primary op's timeline as children, so the timeline spans
+client, primary, AND shard OSDs. Consecutive-interval semantics make
+the stage durations sum EXACTLY to the end-to-end latency — the
+property the gap-attribution report (tools/gap_report.py) relies on.
+
+Always on and cheap: one list append + lock per mark, no formatting.
+``NOOP`` is the free sink for untimed paths (internal clients, old
+peers sending no ``stages`` field).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+#: canonical stage order for one EC full-object write (the tentpole's
+#: acceptance timeline); reads and RMW ops mark a subset
+EC_WRITE_STAGES = (
+    "client_submit", "objecter_encode", "send_queue_wait", "wire",
+    "dispatch_queue_wait", "pg_process", "engine_stage_wait",
+    "device_window_wait", "device_finalize", "commit_wait",
+    "commit_reply",
+)
+
+#: a shard sub-write's child timeline (primary -> shard OSD -> commit)
+SUBOP_STAGES = ("subop_send", "subop_wire", "subop_dispatch_wait",
+                "subop_commit")
+
+#: the commit-wait envelope (ISSUE 14): a ``commit`` child timeline
+#: the EC fan-out hangs under the op, partitioning the primary's
+#: ``commit_wait`` interval — anchor ``commit_start`` sits at the
+#: mark commit_wait measures from (device_finalize on the engine
+#: path, pg_process on the host path), so the child's intervals sum
+#: to the op's commit_wait (the >= 90% commit-path coverage bar)
+COMMIT_STAGES = ("commit_handoff", "commit_dispatch",
+                 "commit_ship_wait", "commit_ack_wait")
+
+#: one-line glossary served by ``dump_op_timeline`` and BASELINE.md
+GLOSSARY = {
+    "client_submit": "anchor: op_submit entry on the client",
+    "objecter_encode": "tid alloc + MOSDOp build + CRUSH targeting",
+    "send_queue_wait": "send_message() -> messenger loop pickup",
+    "wire": "frame serialize + socket + receiver read loop",
+    "dispatch_queue_wait": "fast dispatch -> op-wq worker dequeue",
+    "pg_process": "dup/blocklist checks + PG lock -> engine staging",
+    "engine_stage_wait": "staged -> batch flush launch (batching)",
+    "device_window_wait": "launch -> harvest begin (pipeline window)",
+    "device_finalize": "blocking device compute + parity download",
+    "commit_wait": "continuation -> all shard sub-ops committed "
+                   "(reads: op execution)",
+    "commit_reply": "reply serialize + wire + client wakeup",
+    "subop_send": "anchor: MECSubWrite handed to the messenger",
+    "subop_wire": "sub-op frame serialize + socket + shard read loop",
+    "subop_dispatch_wait": "shard fast dispatch -> op-wq dequeue",
+    "subop_commit": "shard store transaction commit",
+    "commit_start": "anchor: where commit_wait starts measuring",
+    "commit_handoff": "engine-retire continuation re-enqueue -> "
+                      "op-wq worker dequeue (the cross-thread hop; "
+                      "ISSUE 17)",
+    "commit_dispatch": "continuation run: PG lock + fan-out txn "
+                       "build (queue wait split into commit_handoff)",
+    "commit_ship_wait": "flush-group ship: local store txn group + "
+                        "per-peer sub-write batch serialize/send",
+    "commit_ack_wait": "last local/remote shard commit ack + "
+                       "completion sweep",
+}
+
+
+class StageClock:
+    """Ordered (stage, t) marks for one op; see module docstring."""
+
+    __slots__ = ("marks", "children", "start_idx", "wall0", "_lock")
+
+    def __init__(self, name: str = "client_submit",
+                 t: float | None = None) -> None:
+        self._lock = threading.Lock()
+        self.marks: list[tuple[str, float]] = [
+            (name, time.monotonic() if t is None else t)]
+        #: wall-clock epoch of the anchor mark (ISSUE 10): monotonic
+        #: stamps order exactly but cannot be aligned across daemons
+        #: or exported — every dump carries this anchor so the trace
+        #: export and cross-daemon assembly can place the timeline on
+        #: the epoch axis
+        self.wall0 = time.time() - (time.monotonic()
+                                    - self.marks[0][1])
+        #: child timelines merged in (shard sub-ops): label -> marks
+        self.children: dict[str, list[tuple[str, float]]] = {}
+        #: index of the first mark THIS daemon added (from_wire sets
+        #: it past the sender's marks) — the recording split that
+        #: keeps client and server from double-counting stages
+        self.start_idx = 1
+
+    # -- marking -------------------------------------------------------
+    def mark(self, stage: str, t: float | None = None) -> None:
+        with self._lock:
+            self.marks.append(
+                (stage, time.monotonic() if t is None else t))
+
+    def mark_once(self, stage: str, t: float | None = None) -> None:
+        """Mark unless ``stage`` is already present (resend paths re-
+        enter the send machinery; the first attempt's timing wins)."""
+        with self._lock:
+            if any(s == stage for s, _ in self.marks):
+                return
+            self.marks.append(
+                (stage, time.monotonic() if t is None else t))
+
+    def merge_child(self, label: str, child: "StageClock | None"
+                    ) -> None:
+        """Attach a shard sub-op's timeline under ``label``."""
+        if child is None or child is NOOP:
+            return
+        with self._lock:
+            self.children[label] = list(child.marks)
+
+    # -- wire form (the ``stages`` message field) ----------------------
+    def to_wire(self) -> str:
+        with self._lock:
+            parts = ["|".join(f"{s}:{t:.9f}" for s, t in self.marks)]
+            for label, marks in sorted(self.children.items()):
+                parts.append(label + "=" + "|".join(
+                    f"{s}:{t:.9f}" for s, t in marks))
+        return "#".join(parts)
+
+    @classmethod
+    def from_wire(cls, wire: str) -> "StageClock | _NoopClock":
+        """Continue a timeline carried in a message; NOOP when the
+        sender did not time the op (empty/garbled field) — a malformed
+        peer must cost nothing, like Tracer.from_wire."""
+        if not wire:
+            return NOOP
+        try:
+            segs = wire.split("#")
+            marks = [(s, float(t)) for s, _, t in
+                     (m.partition(":") for m in segs[0].split("|"))]
+            if not marks or any(not s for s, _ in marks):
+                return NOOP
+            clock = cls.__new__(cls)
+            clock._lock = threading.Lock()
+            clock.marks = marks
+            # daemons share one process, so the wall anchor derives
+            # exactly from the monotonic offset (a multi-process port
+            # would carry it in the wire form instead)
+            clock.wall0 = time.time() - (time.monotonic()
+                                         - marks[0][1])
+            clock.children = {}
+            clock.start_idx = len(marks)
+            for seg in segs[1:]:
+                label, _, body = seg.partition("=")
+                clock.children[label] = [
+                    (s, float(t)) for s, _, t in
+                    (m.partition(":") for m in body.split("|"))]
+            return clock
+        except (ValueError, AttributeError):
+            return NOOP
+
+    # -- views ---------------------------------------------------------
+    def durations(self) -> list[tuple[str, float]]:
+        """(stage, seconds) for every mark past the anchor — the
+        interval ending at that mark."""
+        with self._lock:
+            marks = list(self.marks)
+        return [(marks[i][0], marks[i][1] - marks[i - 1][1])
+                for i in range(1, len(marks))]
+
+    def own_durations(self) -> list[tuple[str, float]]:
+        """Only the intervals ending at marks THIS daemon added (the
+        ``start_idx`` split) — what each daemon records locally so the
+        process-wide histograms never double-count a stage."""
+        with self._lock:
+            marks = list(self.marks)
+            start = self.start_idx
+        return [(marks[i][0], marks[i][1] - marks[i - 1][1])
+                for i in range(max(1, start), len(marks))]
+
+    def last_mark_t(self) -> float:
+        """Timestamp of the newest mark (the commit envelope anchors
+        its child clock here: commit_wait measures from this point)."""
+        with self._lock:
+            return self.marks[-1][1]
+
+    def total(self) -> float:
+        with self._lock:
+            return self.marks[-1][1] - self.marks[0][1]
+
+    def dump(self) -> dict:
+        """JSON-able timeline (optracker records, dump_op_timeline)."""
+        with self._lock:
+            marks = list(self.marks)
+            children = {k: list(v) for k, v in self.children.items()}
+        t0 = marks[0][1]
+
+        def _rows(ms):
+            return [{"stage": s,
+                     "t_us": round((t - ms[0][1]) * 1e6, 1),
+                     "dur_us": round((t - ms[i - 1][1]) * 1e6, 1)
+                     if i else 0.0}
+                    for i, (s, t) in enumerate(ms)]
+
+        out = {"stages": _rows(marks),
+               "total_us": round((marks[-1][1] - t0) * 1e6, 1),
+               # epoch anchor of t_us == 0 (dump_op_timeline and the
+               # Perfetto export place rows on the wall axis with it)
+               "wall_epoch": round(self.wall0, 6)}
+        if children:
+            out["children"] = {label: _rows(ms)
+                               for label, ms in sorted(children.items())}
+        return out
+
+
+class _NoopClock:
+    """Free sink for untimed ops: every operation is a no-op."""
+    __slots__ = ()
+    start_idx = 0
+    children: dict = {}
+
+    def mark(self, stage: str, t: float | None = None) -> None: ...
+    def mark_once(self, stage: str, t: float | None = None) -> None: ...
+    def merge_child(self, label, child) -> None: ...
+    def to_wire(self) -> str:
+        return ""
+
+    def durations(self) -> list:
+        return []
+
+    def own_durations(self) -> list:
+        return []
+
+    def last_mark_t(self) -> float:
+        return 0.0
+
+    def total(self) -> float:
+        return 0.0
+
+    def dump(self) -> dict:
+        return {}
+
+
+NOOP = _NoopClock()
+
+
+# -- per-thread current clock (how a backend picks up the op's clock
+# without threading it through every call signature — the same seam
+# tracing.set_current provides for spans) -----------------------------
+
+_tls = threading.local()
+
+
+def set_current(clock) -> None:
+    _tls.clock = clock
+
+
+def current():
+    return getattr(_tls, "clock", NOOP)

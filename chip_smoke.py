@@ -42,6 +42,31 @@ Phases, each printing one JSON line:
    row crcs (``stage2_combine``: events and device time, held against the
    CPU); and the fused flush's wall time, with a torch.profiler breakdown
    of one flush (device busy share, top device and host entries);
+5b. engine: the write path through ``DeviceEncodeEngine`` (window 3,
+   flushes of 128 MiB) on the same profile: 8 x 128 objects of 1 MiB
+   (1 GiB, from the seed) staged from 4 producer threads, after a 3-flush
+   burst that warms the slot streams' allocators. Continuations run on a
+   per-key executor (4 workers, as an OSD's sharded op queue), copy their
+   shards into a host store and keep their crcs. Two bursts: "drain",
+   staged while the engine is held in a ``run_sync`` and timed from the
+   release (the engine's rate on a full queue), and "live", staged into
+   the running engine and timed from the first ``stage_encode`` (the
+   write rate with the producers' staging copy in it). Checked: every
+   op's data shards and parity against the host GF oracle, every crc of
+   the drain's first and last flush against the host crc32c, the live
+   burst's shards and crcs equal to the drain's, degraded reads of 1 and
+   2 lost data shards of the first flush through ``decode_sync``, and
+   each key's continuation order; asserted after the ``engine`` line:
+   8 drain flushes, window depth >= 2 in the drain, no errors, fused
+   fallbacks or host flushes, B1 launches = 8 + the reads that are not
+   XOR-decodable and B2 launches = 8 in the drain, both = the flush
+   count in the live burst (counts zeroed just before each burst). The
+   line prints both walls and GB/s beside phase 5's single flush, each
+   drain flush's host split (upload enqueue, device transpose enqueue,
+   launch, pinned output allocation, ``finalize`` wait,
+   ``_split_results``; the producers' stager copy and the
+   continuations' store copy) and the data shards' way back (download
+   against a host transpose). Then ``bench/engine_loop``'s line;
 6. Clay kernels against their plain versions on the card, byte-exact: B3
    and B4 over k=8,m=4,d=11, k=4,m=2 and k=4,m=3,d=6 (virtual nodes) at
    ragged L (B3 also at 64 and 32 Ki lanes, its short form; B3 and B4 from
@@ -99,6 +124,13 @@ Phases, each printing one JSON line:
    layer, each equal to a numpy-backend codec, with B1's launches, and a
    torch.profiler breakdown of one LRC encode.
 
+13. a 3-flush engine burst (crcs kept, shards dropped, continuations on
+   the per-key executor) under torch.profiler: device busy share, top
+   device and host entries, host split, and the device time in which two
+   slot streams ran at once; asserted: window depth >= 2 and that time
+   > 0 (last, since a session spanning the engine's threads has been
+   followed by empty sessions).
+
 Then the ``kernels`` summary line (every number in it measured in this
 run, but ``bound_ms``, which it computes from this run's inputs; the old
 designs' pinned ``prev_ms`` print only in the phase lines above), the
@@ -108,12 +140,15 @@ or failed launch raises and exits non-zero before the last line.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
+import queue
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -136,6 +171,11 @@ OBJECTS = 128
 CHUNK = 4096                       # osd_pool_erasure_code_stripe_unit default
 RESIDENT_LANES = OBJECTS * OBJECT_BYTES // K     # 16 Mi bytes per shard
 SEED = 20261016
+#: phase 5b: the engine burst, 8 flushes of OBJECTS objects staged from 4
+#: threads into an engine whose launch window holds 3 flushes
+ENGINE_FLUSHES = 8
+ENGINE_PRODUCERS = 4
+ENGINE_WINDOW = 3
 
 #: the repo's Clay deployment (BASELINE.json configs[3], bench.py:546):
 #: q=4, t=3, nu=0, 64 sub-chunks per chunk
@@ -237,13 +277,19 @@ def flush_profile(flush, phase: str = "flush_profile") -> dict:
     """Where one call's wall time goes: torch.profiler over one call of
     ``flush``; device busy = the sum of device-side activity (kernels and
     copies, one stream, so no overlap), host = top CPU ops by self time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         flush()
         wall = time.perf_counter() - t0
+    return profile_report(prof, wall, phase)
+
+
+def profile_report(prof, wall: float, phase: str) -> dict:
+    """Device busy time and share of ``wall`` and the top device and host
+    entries of a finished torch.profiler session."""
+    from torch.autograd import DeviceType
     avgs = prof.key_averages()
     dev = [e for e in avgs if e.device_type == DeviceType.CUDA]
     host = [e for e in avgs if e.device_type == DeviceType.CPU]
@@ -259,6 +305,466 @@ def flush_profile(flush, phase: str = "flush_profile") -> dict:
             "device_busy_share": busy_us / 1e6 / wall,
             "top_device_ms": top(dev, "self_device_time_total"),
             "top_host_self_ms": top(host, "self_cpu_time_total")}
+
+
+# -- the device engine (kernels B1, B2 through DeviceEncodeEngine) --------
+
+class KeyedExecutor:
+    """Per-key FIFO executor, as an OSD's sharded op queue: the
+    continuations of key ``k`` run in order on worker ``hash(k) %
+    workers``, off the engine's retire thread."""
+
+    def __init__(self, workers: int) -> None:
+        self._queues = [queue.SimpleQueue() for _ in range(workers)]
+        self._threads = [threading.Thread(target=self._work, args=(q,),
+                                          daemon=True)
+                         for q in self._queues]
+        for th in self._threads:
+            th.start()
+
+    def dispatch(self, key, fn) -> None:
+        self._queues[hash(key) % len(self._queues)].put(fn)
+
+    @staticmethod
+    def _work(q) -> None:
+        while (fn := q.get()) is not None:
+            fn()
+
+    def stop(self) -> None:
+        for q in self._queues:
+            q.put(None)
+        for th in self._threads:
+            th.join()
+
+
+def _engine_burst(eng, codec, sinfo, objs, producers: int, prof=None,
+                  store=None, hold: bool = True):
+    """Stage ``objs`` from ``producers`` threads (thread t stages objects
+    t, t + producers, ... under key t). With ``hold``, the engine is held
+    in a ``run_sync`` until all are staged and then released: the wall
+    runs from the release to the last continuation, the engine's drain
+    rate of a full queue. Without, the producers stage into the running
+    engine and the wall runs from the first ``stage_encode`` to the last
+    continuation. ``prof``, a torch.profiler session, records over the
+    wall. Each op's continuation keeps its crcs and, given ``store``
+    ([n, K, seg] and [n, M, seg] host arrays), copies its data and
+    parity shards into it, as a caller that lands the shards and drops
+    the engine's buffers would; the results' pinned memory then goes back
+    to PyTorch's host allocator. Returns (wall s, {op: (crcs, err)},
+    {key: continuation order}, [op by completion], seconds each producer
+    spent in stage_encode, seconds each key's continuations spent
+    copying into ``store``)."""
+    gate, held = threading.Event(), threading.Event()
+    if hold:
+        holder = threading.Thread(
+            target=eng.run_sync,
+            args=(lambda: (held.set(), gate.wait(600)), 900))
+        holder.start()
+        check(held.wait(60), "engine never picked up the hold")
+    out, order, completed = {}, {t: [] for t in range(producers)}, []
+    lock, done = threading.Lock(), threading.Event()
+    stage_s, store_s = [0.0] * producers, [0.0] * producers
+
+    def producer(t):
+        for i in range(t, len(objs), producers):
+            def cont(shards, crcs, err, i=i):
+                if store is not None and err is None:
+                    t0 = time.perf_counter()
+                    for j, dst in enumerate(store[0][i]):
+                        dst[:] = shards[j]
+                    for j, dst in enumerate(store[1][i]):
+                        dst[:] = shards[K + j]
+                    store_s[t] += time.perf_counter() - t0
+                with lock:
+                    out[i] = (crcs, err)
+                    order[t].append(i)
+                    completed.append(i)
+                    if len(out) == len(objs):
+                        done.set()
+            t0 = time.perf_counter()
+            eng.stage_encode(t, codec, sinfo, objs[i], cont)
+            stage_s[t] += time.perf_counter() - t0
+
+    threads = [threading.Thread(target=producer, args=(t,))
+               for t in range(producers)]
+
+    def stage_all():
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+
+    if hold:
+        stage_all()
+    with prof if prof is not None else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        if hold:
+            gate.set()
+        else:
+            stage_all()
+        check(done.wait(600), "engine burst never completed")
+        wall = time.perf_counter() - t0
+    if hold:
+        holder.join()
+    return wall, out, order, completed, stage_s, store_s
+
+
+def _check_engine_store(codec, data, store, out, completed, n_obj) -> int:
+    """Every op's data shards and parity in ``store`` against the host GF
+    oracle, and every crc of the first and the last flush against the
+    host crc32c; returns the number of crcs checked."""
+    from ceph_tpu_torch.ops import gf256
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.utils import checksum
+    seg = OBJECT_BYTES // K
+    for o in range(n_obj):
+        crcs, err = out[o]
+        check(err is None and crcs is not None, f"op {o}: err {err!r}")
+    for lo in range(0, n_obj, OBJECTS):
+        # objects lo .. lo+127 in shard layout: op o's shard i is its
+        # column slice; each op is checked against its own bytes
+        dsh = np.ascontiguousarray(
+            data[lo * OBJECT_BYTES:(lo + OBJECTS) * OBJECT_BYTES]
+            .reshape(OBJECTS, -1, K, CHUNK).transpose(0, 2, 1, 3)
+            .reshape(OBJECTS, K, seg))
+        check(np.array_equal(store[0][lo:lo + OBJECTS], dsh),
+              f"engine data shards of objects {lo}..")
+        par = gf256.gf_matvec_chunks(
+            codec.coding_matrix, np.ascontiguousarray(
+                dsh.transpose(1, 0, 2)).reshape(K, -1)) \
+            .reshape(M, OBJECTS, seg).transpose(1, 0, 2)
+        check(np.array_equal(store[1][lo:lo + OBJECTS], par),
+              f"engine parity of objects {lo}.. vs host oracle")
+    crc_checked = 0
+    for ops in (completed[:OBJECTS], completed[-OBJECTS:]):
+        segs = np.concatenate([np.concatenate([store[0][o], store[1][o]])
+                               for o in ops])
+        host = checksum.crc32c_rows(segs, ec_util.HINFO_SEED)
+        got = []
+        for o in ops:
+            hi = ec_util.HashInfo(K + M)
+            hi.append_linear(0, out[o][0], seg)
+            got += [hi.get_chunk_hash(i) for i in range(K + M)]
+        check(got == host.tolist(), "engine shard crcs vs host crc32c")
+        crc_checked += len(got)
+    return crc_checked
+
+
+def _data_return_probe(dev, data) -> dict:
+    """How a flush's data shards come back to the host: ``finalize``
+    downloads the device's shard-major copy (128 MiB more over PCIe a
+    flush, timed with CUDA events), against a host transpose of the
+    pinned staged batch (host clock), which moves no bytes over PCIe.
+    Median of 3 each; both results must be equal."""
+    nb = OBJECTS * OBJECT_BYTES
+    s = nb // (K * CHUNK)
+    staged = torch.empty(nb, dtype=torch.uint8, pin_memory=True)
+    staged.numpy()[:] = data[:nb]
+    on_dev = staged.to(dev).view(s, K, CHUNK).permute(1, 0, 2).contiguous()
+    d2h = torch.empty((K, s, CHUNK), dtype=torch.uint8, pin_memory=True)
+    host_t = torch.empty((K, s, CHUNK), dtype=torch.uint8, pin_memory=True)
+    d2h_ms, host_ms = [], []
+    for _ in range(3):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        d2h.copy_(on_dev, non_blocking=True)
+        e1.record()
+        e1.synchronize()
+        d2h_ms.append(e0.elapsed_time(e1))
+        t0 = time.perf_counter()
+        host_t.copy_(staged.view(s, K, CHUNK).permute(1, 0, 2))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    check(torch.equal(d2h, host_t), "data shards: download vs host transpose")
+    return {"bytes": nb, "download_events_ms": statistics.median(d2h_ms),
+            "host_transpose_ms": statistics.median(host_ms),
+            "download_runs_ms": d2h_ms, "host_transpose_runs_ms": host_ms}
+
+
+def engine_phase(dev, codec, sinfo, smi, single_flush_s) -> dict:
+    """Phase 5b: the write path through ``DeviceEncodeEngine`` on the card
+    (see the module docstring). Returns the B1/B2 launch counts."""
+    from ceph_tpu_torch.bench import engine_loop
+    from ceph_tpu_torch.ops import crc32c_cuda, gf_cuda
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd.device_engine import DeviceEncodeEngine
+    from ceph_tpu_torch.utils.device_telemetry import telemetry
+
+    rng = np.random.default_rng(SEED + 11)
+    n_obj = ENGINE_FLUSHES * OBJECTS
+    data = rng.integers(0, 256, n_obj * OBJECT_BYTES, dtype=np.uint8)
+    objs = [data[i * OBJECT_BYTES:(i + 1) * OBJECT_BYTES]
+            for i in range(n_obj)]
+    # whether pinned stager buffers would pay: one 128 MiB buffer, made
+    # and filled as the stager would, host numpy against pinned
+    t0 = time.perf_counter()
+    buf = np.empty(OBJECTS * OBJECT_BYTES, np.uint8)
+    buf[:] = data[:len(buf)]
+    numpy_fill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pinned = torch.empty(OBJECTS * OBJECT_BYTES, dtype=torch.uint8,
+                         pin_memory=dev.type == "cuda")
+    pinned_alloc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pinned.numpy()[:] = data[:len(buf)]
+    pinned_fill = time.perf_counter() - t0
+    del buf, pinned
+    data_return = _data_return_probe(dev, data)
+
+    def landing():
+        """The shards' landing place, touched before the burst."""
+        seg = OBJECT_BYTES // K
+        return (np.ones((n_obj, K, seg), np.uint8),
+                np.ones((n_obj, M, seg), np.uint8))
+
+    def launches_now():
+        return {"gf_matvec": gf_cuda.launches,
+                "crc32c_rows": crc32c_cuda.launches}
+
+    store = landing()
+    executor = KeyedExecutor(ENGINE_PRODUCERS)
+
+    def engine():
+        return DeviceEncodeEngine(executor.dispatch,
+                                  flush_bytes=OBJECTS * OBJECT_BYTES,
+                                  window=ENGINE_WINDOW)
+    try:
+        # a first 3-flush burst warms the device allocator of the three
+        # slot streams and the pinned host blocks, as a running engine
+        # has them
+        warm = engine()
+        try:
+            warm_wall = _engine_burst(warm, codec, sinfo,
+                                      objs[:3 * OBJECTS],
+                                      ENGINE_PRODUCERS)[0]
+        finally:
+            warm.stop()
+        telemetry().reset()
+        with _captured_splits() as splits:
+            eng = engine()
+            try:
+                gf_cuda.reset_launches()
+                crc32c_cuda.reset_launches()
+                (wall, out, order, completed, stage_s,
+                 store_s) = _engine_burst(eng, codec, sinfo, objs,
+                                          ENGINE_PRODUCERS, store=store)
+                # degraded reads of the first flush's objects
+                first = completed[:OBJECTS]
+                streams = {i: np.concatenate(
+                    [store[0][o, i] for o in first]) for i in range(K)}
+                streams.update({K + j: np.concatenate(
+                    [store[1][o, j] for o in first]) for j in range(M)})
+                reads, b1_decodes = {}, 0
+                for lost in ([0], [0, 1]):
+                    avail = {i: streams[i] for i in range(K + M)
+                             if i not in lost}
+                    b1_decodes += not ec_util.xor_decodable(codec, avail,
+                                                            lost)
+                    t0 = time.perf_counter()
+                    got = eng.decode_sync("read", codec, sinfo, avail,
+                                          lost, timeout=300)
+                    reads[f"e={len(lost)}"] = time.perf_counter() - t0
+                    check(got is not None,
+                          f"decode_sync with {lost} lost failed")
+                    for i in lost:
+                        check(np.array_equal(got[i], streams[i]),
+                              f"engine degraded read of shard {i}, "
+                              f"{lost} lost")
+                launches = launches_now()
+                stats = dict(eng.stats)
+                stager = dict(eng._stager.stats)
+            finally:
+                eng.stop()
+        counters = telemetry().snapshot()["counters"]
+        hbm_after = telemetry().hbm_live_bytes()
+        del streams
+        crc_checked = _check_engine_store(codec, data, store, out,
+                                          completed, n_obj)
+        # the same objects staged by live producers into a running engine
+        live_store = landing()
+        live = engine()
+        try:
+            gf_cuda.reset_launches()
+            crc32c_cuda.reset_launches()
+            (live_wall, live_out, live_order, _done, live_stage_s,
+             live_store_s) = _engine_burst(live, codec, sinfo, objs,
+                                           ENGINE_PRODUCERS,
+                                           store=live_store, hold=False)
+            live_launches = launches_now()
+            live_stats = dict(live.stats)
+        finally:
+            live.stop()
+    finally:
+        executor.stop()
+    check(all(live_out[o] == out[o] for o in range(n_obj)),
+          "live burst crcs or errors differ from the held burst's")
+    check(np.array_equal(live_store[0], store[0]) and
+          np.array_equal(live_store[1], store[1]),
+          "live burst shards differ from the held burst's")
+    del out, live_out, store, live_store
+
+    split = _split_ms(splits[:ENGINE_FLUSHES])
+    split["stager_copy_s"] = {
+        "per_flush_mean": sum(stage_s) / ENGINE_FLUSHES * 1e3,
+        "per_producer": [x * 1e3 for x in stage_s]}
+    split["store_copy_s"] = {
+        "per_flush_mean": sum(store_s) / ENGINE_FLUSHES * 1e3,
+        "per_key": [x * 1e3 for x in store_s]}
+    gbytes = n_obj * OBJECT_BYTES / 1e9
+    emit({"phase": "engine", "card": smi,
+          "profile": "isa reed_sol_van k=8 m=3",
+          "objects": n_obj, "object_bytes": OBJECT_BYTES,
+          "flush_bytes": OBJECTS * OBJECT_BYTES, "window": ENGINE_WINDOW,
+          "producers": ENGINE_PRODUCERS,
+          "continuations": f"per-key executor, {ENGINE_PRODUCERS} workers",
+          "drain_wall_s": wall, "drain_GBps": gbytes / wall,
+          "live_wall_s": live_wall, "live_GBps": gbytes / live_wall,
+          "warm_burst_3_flushes_s": warm_wall,
+          "phase5_single_flush_s": single_flush_s,
+          "host_split_ms": split, "stats": stats, "stager": stager,
+          "inflight_depth_hist": counters["engine_inflight_depth"],
+          "overlap_pct_hist": counters["engine_overlap_pct"],
+          "hbm_live_bytes_after": hbm_after,
+          "launches": launches, "b1_decode_launches": b1_decodes,
+          "parity_ops_checked": n_obj, "crc_segments_checked": crc_checked,
+          "degraded_read_s": reads,
+          "live": {"stats": live_stats, "launches": live_launches,
+                   "stager_copy_ms_per_producer":
+                       [x * 1e3 for x in live_stage_s],
+                   "store_copy_ms_per_key":
+                       [x * 1e3 for x in live_store_s]},
+          "data_return": data_return,
+          "stager_probe_ms": {"numpy_alloc_fill": numpy_fill * 1e3,
+                              "pinned_alloc": pinned_alloc * 1e3,
+                              "pinned_fill": pinned_fill * 1e3}})
+    check(stats["flushes"] == ENGINE_FLUSHES and
+          stats["ops"] == n_obj, f"engine flushes: {stats}")
+    check(stats["max_inflight_depth"] >= 2,
+          f"the window never held two flushes: {stats}")
+    for st in (stats, live_stats):
+        for key in ("errors", "device_fused_fallbacks", "host_flushes",
+                    "decode_errors"):
+            check(st[key] == 0, f"engine {key}: {st}")
+    check(launches == {"gf_matvec": ENGINE_FLUSHES + b1_decodes,
+                       "crc32c_rows": ENGINE_FLUSHES},
+          f"engine kernel launches {launches}, expected B1 "
+          f"{ENGINE_FLUSHES} + {b1_decodes} decodes, B2 {ENGINE_FLUSHES}")
+    check(live_stats["ops"] == n_obj and
+          live_launches == {"gf_matvec": live_stats["flushes"],
+                            "crc32c_rows": live_stats["flushes"]},
+          f"live burst launches {live_launches}: {live_stats}")
+    for seqs in (order, live_order):
+        for t, seq in seqs.items():
+            check(seq == list(range(t, n_obj, ENGINE_PRODUCERS)),
+                  f"continuation order of key {t}")
+
+    del objs, data
+    loop = engine_loop.run(device=dev, time_budget=30.0)
+    emit({"phase": "engine_loop", **loop})
+    return launches
+
+
+@contextlib.contextmanager
+def _captured_splits():
+    """Collect every fused flush's host split inside the block (the dict
+    its finalize completes; holding the finalize itself would pin its
+    device inputs)."""
+    from ceph_tpu_torch.osd import ec_util
+    splits, real = [], ec_util._flush_device_fused_async
+
+    def capture(*args, **kwargs):
+        fin = real(*args, **kwargs)
+        splits.append(fin.host_split)
+        return fin
+
+    ec_util._flush_device_fused_async = capture
+    try:
+        yield splits
+    finally:
+        ec_util._flush_device_fused_async = real
+
+
+def _split_ms(splits) -> dict:
+    """Mean, max and each flush's ms of every part of the host split."""
+    out = {}
+    for key in ("upload_s", "transpose_s", "launch_s", "alloc_s",
+                "wait_s", "split_s"):
+        vals = [sp[key] * 1e3 for sp in splits]
+        out[key] = {"mean": statistics.mean(vals), "max": max(vals),
+                    "each": vals}
+    return out
+
+
+def _device_union_ms(prof) -> tuple[float, float]:
+    """(sum, union) in ms of the device activity intervals of a finished
+    torch.profiler session: the sum exceeds the union by the time that
+    work on different streams ran at once."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    total = sum(end - start for start, end in spans)
+    union, cur_s, cur_e = 0.0, None, None
+    for start, end in spans:
+        if cur_e is None or start > cur_e:
+            if cur_e is not None:
+                union += cur_e - cur_s
+            cur_s, cur_e = start, end
+        else:
+            cur_e = max(cur_e, end)
+    if cur_e is not None:
+        union += cur_e - cur_s
+    return total / 1e3, union / 1e3
+
+
+def engine_profile_phase(dev, codec, sinfo) -> None:
+    """Phase 13: a 3-flush engine burst (the objects of phase 5b's first
+    three flushes) under torch.profiler, from the release to the last
+    continuation, keeping only the crcs; continuations on the per-key
+    executor. Prints the window's depth and how long work on different
+    slot streams ran at once on the device. Run last: a profiling
+    session that spans the engine's threads has been followed by
+    sessions that record nothing in the same process."""
+    from ceph_tpu_torch.osd.device_engine import DeviceEncodeEngine
+    rng = np.random.default_rng(SEED + 11)
+    data = rng.integers(0, 256, 3 * OBJECTS * OBJECT_BYTES, dtype=np.uint8)
+    objs = [data[i * OBJECT_BYTES:(i + 1) * OBJECT_BYTES]
+            for i in range(3 * OBJECTS)]
+    from torch.profiler import ProfilerActivity, profile
+    session = profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+    executor = KeyedExecutor(ENGINE_PRODUCERS)
+    eng = DeviceEncodeEngine(executor.dispatch,
+                             flush_bytes=OBJECTS * OBJECT_BYTES,
+                             window=ENGINE_WINDOW)
+    try:
+        with _captured_splits() as splits:
+            prof_wall = _engine_burst(eng, codec, sinfo, objs,
+                                      ENGINE_PRODUCERS, prof=session)[0]
+        prof_stats = dict(eng.stats)
+    finally:
+        eng.stop()
+        executor.stop()
+    report = profile_report(session, prof_wall, "engine_profile")
+    dev_sum, dev_union = _device_union_ms(session)
+    report.update(flushes=3, per_flush_wall_ms=report["wall_ms"] / 3,
+                  per_flush_device_busy_ms=report["device_busy_ms"] / 3,
+                  device_interval_sum_ms=dev_sum,
+                  device_interval_union_ms=dev_union,
+                  device_concurrent_ms=dev_sum - dev_union,
+                  max_inflight_depth=prof_stats["max_inflight_depth"],
+                  errors=prof_stats["errors"],
+                  host_split_ms=_split_ms(splits),
+                  note="device busy sums the kernels and copies of all "
+                       "side streams; the interval sum exceeds their "
+                       "union by the time streams ran at once")
+    emit(report)
+    check(prof_stats["flushes"] == 3 and prof_stats["errors"] == 0,
+          f"engine profile burst: {prof_stats}")
+    check(prof_stats["max_inflight_depth"] >= 2,
+          f"with cheap continuations the window never held two flushes: "
+          f"{prof_stats}")
+    check(dev_sum - dev_union > 0,
+          "no device work of two slot streams ran at once")
 
 
 # -- Clay (kernels B3, B4, B5) ---------------------------------------------
@@ -1185,6 +1691,10 @@ def main() -> int:
           "fused_flush_GBps": OBJECTS * OBJECT_BYTES / flush_s / 1e9,
           "fused_flush_peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
 
+    # -- 5b. the device engine ---------------------------------------------
+    del results, streams
+    engine_phase(dev, codec, sinfo, smi, flush_s)
+
     # -- 6-8. Clay -------------------------------------------------------
     clay = clay_phases(dev, hbm, smi)
 
@@ -1199,6 +1709,9 @@ def main() -> int:
 
     # -- 12. the plugin layer: corpus and LRC ------------------------------
     plugin_phases(dev)
+
+    # -- 13. the engine under torch.profiler ------------------------------
+    engine_profile_phase(dev, codec, sinfo)
 
     # -- 9. summary --------------------------------------------------------
     emit({"kernels": [

@@ -20,6 +20,7 @@ PyTorch is installed:
 """
 
 import itertools
+import threading
 
 import numpy as np
 import pytest
@@ -168,6 +169,94 @@ def test_fused_flush_on_cuda_matches_cpu(cuda):
     out = ec_util.decode(sinfo, on_card, avail, [0, 1])
     for i in (0, 1):
         assert np.array_equal(out[i], np.concatenate([r[1][i] for r in got]))
+
+
+def _held_burst(eng, codec, sinfo, ops, before_release=None):
+    """Stage ``ops`` from two threads (thread t: ops t, t+2, ... under key
+    t) while the engine is held in a run_sync, call ``before_release``,
+    release; returns ({op: (shards, crcs, err)}, {key: order})."""
+    out, order = {}, {0: [], 1: []}
+    lock, done = threading.Lock(), threading.Event()
+    gate, held = threading.Event(), threading.Event()
+    holder = threading.Thread(target=eng.run_sync, args=(
+        lambda: (held.set(), gate.wait(60)), 120))
+    holder.start()
+    assert held.wait(30)
+
+    def producer(t):
+        for i in range(t, len(ops), 2):
+            def cont(s, c, e, i=i):
+                with lock:
+                    out[i] = (s, c, e)
+                    order[t].append(i)
+                    if len(out) == len(ops):
+                        done.set()
+            eng.stage_encode(t, codec, sinfo, ops[i], cont)
+
+    threads = [threading.Thread(target=producer, args=(t,)) for t in (0, 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if before_release is not None:
+        before_release()
+    gate.set()
+    assert done.wait(120), len(out)
+    holder.join()
+    return out, order
+
+
+def test_engine_burst_on_cuda_overlaps_and_matches_cpu(cuda):
+    """Three flushes through ``DeviceEncodeEngine`` (window 3) from two
+    producer threads: every op's shards and linear crcs equal the CPU
+    flush's, the window holds two flushes or more, and each flush runs on
+    its own slot's side stream. A first burst warms the allocators of
+    the three slot streams; before the second, each slot stream gets a
+    0.1 s spin kernel, so the device is still busy while later flushes
+    launch. The kernel libraries (their own static CUDA runtime, handed
+    the slot stream by PyTorch on the engine thread) must launch behind
+    it in order with PyTorch's upload and download, or the parity would
+    be read before it is computed."""
+    from ceph_tpu_torch.osd.device_engine import (DeviceEncodeEngine,
+                                                  slot_stream)
+    profile = {"k": "8", "m": "3", "technique": "reed_sol_van"}
+    on_card = instance().factory("isa", profile, device=cuda)
+    on_cpu = instance().factory("isa", profile, device="cpu")
+    sinfo = ec_util.StripeInfo(stripe_width=8 * 4096, chunk_size=4096)
+    ops = [_bytes(100 + i, 2 * sinfo.stripe_width) for i in range(24)]
+    # 8 ops close a flush: exactly 3 a burst
+    eng = DeviceEncodeEngine(lambda key, fn: fn(),
+                             flush_bytes=16 * sinfo.stripe_width,
+                             window=3, host_flush_bytes=0)
+
+    def spin_slots():
+        for slot in range(3):
+            with torch.cuda.stream(slot_stream(cuda, slot)):
+                torch.cuda._sleep(int(2e8))
+
+    try:
+        _held_burst(eng, on_card, sinfo, ops)
+        assert eng.stats["max_inflight_depth"] >= 1
+        gf_cuda.reset_launches()
+        crc32c_cuda.reset_launches()
+        out, order = _held_burst(eng, on_card, sinfo, ops, spin_slots)
+    finally:
+        eng.stop()
+    stats = eng.stats
+    assert stats["max_inflight_depth"] >= 2, stats
+    assert stats["flushes"] == 6, stats
+    assert stats["errors"] == stats["host_flushes"] == 0, stats
+    assert gf_cuda.launches == crc32c_cuda.launches == 3
+    for t in (0, 1):
+        assert order[t] == list(range(t, len(ops), 2))
+    for i, buf in enumerate(ops):
+        b = ec_util.StripeBatcher(sinfo, on_cpu)
+        b.append(i, buf)
+        (_, wshards, wcrcs), = b.flush(with_crcs=True)
+        shards, crcs, err = out[i]
+        assert err is None and crcs == wcrcs, i
+        for pos in range(11):
+            assert np.array_equal(shards[pos], wshards[pos]), (i, pos)
 
 
 CLAY_PROFILES = [{"k": "8", "m": "4", "d": "11"}, {"k": "4", "m": "2"},
