@@ -1,1 +1,2 @@
-"""OSD-side stripe math and the batched encode + crc flush."""
+"""OSD: the daemon, its PG layer and EC backend, the stripe math, the
+batched encode + crc flush and the device engine."""

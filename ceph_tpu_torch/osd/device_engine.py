@@ -48,8 +48,10 @@ key sharing a :class:`FlushGroup`), and the shared engine service
 Not ported yet: the multi-device mesh route (ROADMAP A.5: the placement
 slot is always 0 and ``ec_util`` raises on a mesh) and the config
 observers of the four knobs (A.6: knobs resolve explicit argument, then
-environment, then default, once at construction). The reference's other
-host hooks are the do-nothing stand-ins of ``utils/noop_hooks``.
+environment, then default, once at construction). The lock witness and
+the static tracepoints are the do-nothing stand-ins of
+``utils/noop_hooks`` (A.6); the other host hooks are the port's copies of
+the reference's modules.
 """
 
 from __future__ import annotations
@@ -66,18 +68,22 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch.osd import ec_util
-from ceph_tpu_torch.utils import noop_hooks as _noop
+from ceph_tpu_torch.utils import faults as _faults
+from ceph_tpu_torch.utils import profiler as _prof
 from ceph_tpu_torch.utils import stage_clock as _stage_clock
 from ceph_tpu_torch.utils.device_telemetry import telemetry as _telemetry
+from ceph_tpu_torch.utils import dispatch_telemetry as _dsp
+from ceph_tpu_torch.utils import flow_telemetry as _flows
 from ceph_tpu_torch.utils.dout import Dout
-from ceph_tpu_torch.utils.noop_hooks import (NOOP_SPAN as NOOP,
-                                             make_condition, make_lock)
+from ceph_tpu_torch.utils.noop_hooks import (make_condition, make_lock,
+                                             tracepoint)
+from ceph_tpu_torch.utils.tracing import NOOP
 
 log = Dout("osd")
 
-_TP_FLUSH = _noop.tracepoint("osd", "device_flush", "ops", "bytes")
-_TP_DECODE_FLUSH = _noop.tracepoint("osd", "device_decode_flush", "ops",
-                                    "signature")
+_TP_FLUSH = tracepoint("osd", "device_flush", "ops", "bytes")
+_TP_DECODE_FLUSH = tracepoint("osd", "device_decode_flush", "ops",
+                              "signature")
 
 
 def bulk_ingest_enabled() -> bool:
@@ -499,11 +505,11 @@ class DeviceEncodeEngine:
     @staticmethod
     def _note_staged_flow(cont, nbytes: int) -> None:
         """Tenant attribution at the staging seam: the producer's flow
-        label rides the continuation (flows are off in the port)."""
-        ft = _noop.flows_if_active()
+        label rides the continuation."""
+        ft = _flows.flows_if_active()
         if ft is None:
             return
-        cont._flow = _noop.current_flow() or ""
+        cont._flow = _flows.current_flow() or ""
         ft.note_engine_staged(cont._flow, nbytes)
 
     def stage_encode(self, key, codec, sinfo: ec_util.StripeInfo,
@@ -638,9 +644,9 @@ class DeviceEncodeEngine:
     # -- engine thread ------------------------------------------------
     def _run(self) -> None:
         while True:
-            pidle = _noop.profiler_push_stage("idle")
+            pidle = _prof.push_stage("idle")
             item = self._q.get()
-            _noop.profiler_pop_stage(pidle)
+            _prof.pop_stage(pidle)
             if item is None:
                 self._drain_inflight()
                 return
@@ -658,7 +664,7 @@ class DeviceEncodeEngine:
                 if item[0] == "enc":
                     (_, key, codec, sinfo, data, cont, span, clock,
                      ts, pslot) = item
-                    _noop.dispatch_telemetry().note_handoff(
+                    _dsp.telemetry().note_handoff(
                         "engine_stage", _time.monotonic() - ts)
                     _, _, _, items = pending.setdefault(
                         (id(codec), pslot), (codec, sinfo, pslot, []))
@@ -674,7 +680,7 @@ class DeviceEncodeEngine:
                 elif item[0] == "dec":
                     (_, key, codec, sinfo, shards, want, cont, span,
                      clock, ts, pslot) = item
-                    _noop.dispatch_telemetry().note_handoff(
+                    _dsp.telemetry().note_handoff(
                         "engine_stage", _time.monotonic() - ts)
                     sig = (id(codec),
                            tuple(sorted(shards)), tuple(sorted(want)),
@@ -698,13 +704,13 @@ class DeviceEncodeEngine:
                     pending, dec_pending, nbytes = {}, {}, 0
                     _, fn, box, ev = item
                     t0 = _time.perf_counter()
-                    prev_stage = _noop.profiler_push_stage("scrub")
+                    prev_stage = _prof.push_stage("scrub")
                     try:
                         box[0] = fn()
                     except Exception as exc:
                         box[1] = exc
                     finally:
-                        _noop.profiler_pop_stage(prev_stage)
+                        _prof.pop_stage(prev_stage)
                     self.stats["aux_runs"] += 1
                     self.stats["busy_s"] += _time.perf_counter() - t0
                     ev.set()
@@ -736,11 +742,11 @@ class DeviceEncodeEngine:
     def _flush(self, pending: dict) -> None:
         if not pending:
             return
-        prev_stage = _noop.profiler_push_stage("engine_stage_wait")
+        prev_stage = _prof.push_stage("engine_stage_wait")
         try:
             self._flush_inner(pending)
         finally:
-            _noop.profiler_pop_stage(prev_stage)
+            _prof.pop_stage(prev_stage)
 
     def _flush_inner(self, pending: dict) -> None:
         t0 = _time.perf_counter()
@@ -776,7 +782,7 @@ class DeviceEncodeEngine:
             # N+1 launches only after N fully retired
             self._wait_window()
             try:
-                _noop.engine_fault("launch")
+                _faults.engine_fault("launch")
                 if host:
                     finalize = ec_util.flush_host_async(
                         sinfo, codec, list(range(len(views))),
@@ -863,7 +869,7 @@ class DeviceEncodeEngine:
         the results, dispatch its continuations); returns seconds spent
         (also accumulated into busy_s). Runs on the retire thread, or
         inline on the engine thread for an idle host flush."""
-        prev_stage = _noop.profiler_push_stage("device_finalize")
+        prev_stage = _prof.push_stage("device_finalize")
         t0 = _time.perf_counter()
         harvest_t = _time.monotonic()
         (items, finalize, kspans, launch_t, nbytes) = entry
@@ -923,7 +929,7 @@ class DeviceEncodeEngine:
         tel.note_hbm(inflight_delta=-nbytes, retired=nbytes)
         with self._ifcv:     # busy_s has two writers (launch/retire)
             self.stats["busy_s"] += dt
-        _noop.profiler_pop_stage(prev_stage)
+        _prof.pop_stage(prev_stage)
         return dt
 
     def _note_fused_fallback(self, path: str, exc: Exception) -> None:
@@ -942,11 +948,11 @@ class DeviceEncodeEngine:
         Continuations run inline (see stage_decode)."""
         if not dec_pending:
             return
-        prev_stage = _noop.profiler_push_stage("device_finalize")
+        prev_stage = _prof.push_stage("device_finalize")
         try:
             self._flush_decodes_inner(dec_pending)
         finally:
-            _noop.profiler_pop_stage(prev_stage)
+            _prof.pop_stage(prev_stage)
 
     def _flush_decodes_inner(self, dec_pending: dict) -> None:
         for (_cid, present, want, pslot), \
@@ -967,7 +973,7 @@ class DeviceEncodeEngine:
                     span.event(f"decode_flush ops={len(items)} "
                                f"sig={list(present)}->{list(want)}")
             try:
-                _noop.engine_fault("decode")
+                _faults.engine_fault("decode")
                 merged = {
                     c: np.concatenate(
                         [np.asarray(shards[c], dtype=np.uint8)
@@ -1131,7 +1137,7 @@ def _bind(cont, shards, crcs, err):
     flow = getattr(cont, "_flow", "")
 
     def fn():
-        with _noop.flow_scope(flow or None):
+        with _flows.flow_scope(flow or None):
             cont(shards, crcs, err)
 
     fn._profile_stage = "commit_wait"

@@ -1,41 +1,42 @@
 """Leveled, per-subsystem logging with an in-memory crash ring.
 
-A copy of ``ceph_tpu/utils/dout.py``. The reference reads the default
-level and the ring size from its global config (``g_conf()``
-``debug_default_level``, ``log_ring_size``); until the port has that
-module they are module defaults here, each with an environment override
-(``CEPH_TPU_DEBUG_DEFAULT_LEVEL``, ``CEPH_TPU_LOG_RING_SIZE``), read when
-the module loads. The ``log dump`` admin command (``register_asok``)
-waits for the port's admin socket. The reference's description follows.
-
 Reference: src/log/Log.cc (async log thread + in-memory ring kept for
 crash dump) and the ``dout(N)`` macros of src/common/debug.h with
 per-subsystem debug levels (e.g. ``dout(20)`` in ErasureCodeIsa.cc:69).
 
-Here: ``Dout(subsys)`` instances gate on per-subsystem levels; every
-record at or below ``RING_LEVEL`` lands in a bounded ring that
-``dump_recent()`` returns — the crash-dump behavior of the reference's
-ring buffer.
+Here: ``Dout(subsys)`` instances gate on per-subsystem levels from the
+global config; every record (even below the emit threshold... above the
+ring threshold) lands in a bounded ring that ``dump_recent()`` returns —
+the crash-dump behavior of the reference's ring buffer.
 """
 
 from __future__ import annotations
 
 import collections
-import os
 import sys
 import threading
 import time
 
-#: the reference config's defaults (ceph_tpu/utils/config.py:389-392)
-DEFAULT_LEVEL = int(os.environ.get("CEPH_TPU_DEBUG_DEFAULT_LEVEL", "1"))
-LOG_RING_SIZE = int(os.environ.get("CEPH_TPU_LOG_RING_SIZE", "10000"))
+from ceph_tpu_torch.utils.config import g_conf
 
 _lock = threading.Lock()
 _levels: dict[str, int] = {}
-_ring: collections.deque = collections.deque(maxlen=LOG_RING_SIZE)
+_ring: collections.deque = collections.deque(
+    maxlen=g_conf()["log_ring_size"])
 #: records at or below this level always enter the ring even when not
 #: emitted (the reference keeps high-debug entries in memory for crashes)
 RING_LEVEL = 20
+
+
+def _resize_ring(_name: str, value: int) -> None:
+    """log_ring_size observer: resize off the hot path, keeping the
+    newest records."""
+    global _ring
+    with _lock:
+        _ring = collections.deque(_ring, maxlen=value)
+
+
+g_conf().add_observer("log_ring_size", _resize_ring)
 
 
 def set_subsys_level(subsys: str, level: int) -> None:
@@ -45,7 +46,9 @@ def set_subsys_level(subsys: str, level: int) -> None:
 
 def get_subsys_level(subsys: str) -> int:
     with _lock:
-        return _levels.get(subsys, DEFAULT_LEVEL)
+        if subsys in _levels:
+            return _levels[subsys]
+    return g_conf()["debug_default_level"]
 
 
 def dump_recent(count: int = 1000) -> list[str]:
@@ -58,18 +61,37 @@ def dump_recent(count: int = 1000) -> list[str]:
 
 def dump_structured(count: int = 1000,
                     honor_levels: bool = True) -> list[dict]:
-    """The operator-facing ring dump. With ``honor_levels`` each record
-    is gated on its subsystem's CURRENT effective level;
-    ``honor_levels=False`` returns the whole ring."""
+    """The operator-facing ring dump (asok ``log dump``). With
+    ``honor_levels`` each record is gated on its subsystem's CURRENT
+    effective level — the reference workflow: raise ``debug_<subsys>``,
+    reproduce, ``log dump``. ``honor_levels=False`` returns the whole
+    ring (what the crash/diagnostic path wants)."""
     with _lock:
         items = list(_ring)
         levels = dict(_levels)
+    default = g_conf()["debug_default_level"]
     out = []
     for lvl, sub, rec in items:
-        if honor_levels and lvl > levels.get(sub, DEFAULT_LEVEL):
+        if honor_levels and lvl > levels.get(sub, default):
             continue
         out.append({"level": lvl, "subsys": sub, "record": rec})
     return out[-count:]
+
+
+def register_asok(asok) -> None:
+    """The ``log dump`` admin command (Log.cc dump_recent over the
+    asok), so operators and the diagnostic bundle share one path."""
+
+    def _dump(args: dict) -> dict:
+        count = int(args.get("count", 1000))
+        honor = not bool(int(args.get("all", 0)))
+        recs = dump_structured(count, honor_levels=honor)
+        return {"num_records": len(recs), "records": recs}
+
+    asok.register_command(
+        "log dump", _dump,
+        "recent in-memory log records, gated on per-subsys levels "
+        "(all=1 dumps the whole ring; count=N bounds it)")
 
 
 class Dout:

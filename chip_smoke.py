@@ -44,10 +44,12 @@ Phases, each printing one JSON line:
    of one flush (device busy share, top device and host entries);
 5b. engine: the write path through ``DeviceEncodeEngine`` (window 3,
    flushes of 128 MiB) on the same profile: 8 x 128 objects of 1 MiB
-   (1 GiB, from the seed) staged from 4 producer threads, after a 3-flush
-   burst that warms the slot streams' allocators. Continuations run on a
-   per-key executor (4 workers, as an OSD's sharded op queue), copy their
-   shards into a host store and keep their crcs. Two bursts: "drain",
+   (1 GiB, from the seed) staged from 4 producer threads, after a held
+   warm-up burst of the same objects into a store of its own, which warms
+   the slot streams' allocators and the pinned host blocks the drain
+   holds at once. Continuations run on a per-key executor (2 workers, as
+   an OSD's sharded op queue), copy their shards into a host store and
+   keep their crcs. Two bursts: "drain",
    staged while the engine is held in a ``run_sync`` and timed from the
    release (the engine's rate on a full queue), and "live", staged into
    the running engine and timed from the first ``stage_encode`` (the
@@ -67,6 +69,34 @@ Phases, each printing one JSON line:
    ``_split_results``; the producers' stager copy and the
    continuations' store copy) and the data shards' way back (download
    against a host transpose). Then ``bench/engine_loop``'s line;
+5c. cluster: the OSD chain end to end on the same profile as a pool
+   users run: a ``MiniCluster`` of 12 OSDs (threaded, memstore; k+m = 11
+   positions and one spare), an EC pool ``plugin=isa``
+   ``technique=reed_sol_van`` k=8, m=3, ``pg_num=32``, stripe unit 4096,
+   ``backend=cuda``, bulk ingest on (the OSDs share one engine). 512
+   objects of 1 MiB (from the seed) written with ``write_full`` from 8
+   client threads, then a ``write_full`` + ``append`` and a write +
+   ``remove`` on one object each (the engine's barrier ordering). Checked:
+   every object reads back byte-exact; the engine's ops >= 512,
+   ``max_batch_ops`` > 1, no errors; B1 and B2 launched, B2 once a fused
+   flush; for 16 objects in different PGs every shard read straight from
+   its OSD's store, parity against the host GF oracle and each ``hinfo``
+   crc against the host crc32c. The cluster runs with Ceph's default
+   heartbeat grace (20 s) but while two OSDs are killed (the knobs
+   tightened as the reference's ``fast_death`` fixtures do, until both
+   are marked down): all 512 objects read back degraded, the engine
+   decoded (``decode_ops`` > 0, no ``decode_errors``) with B1 launches,
+   and 32 more objects are written and read back; then both OSDs revive,
+   ``wait_for_clean``, and everything reads back again. The ``cluster``
+   line prints the walls and GB/s of the writes, the clean, degraded and
+   final reads and the recovery (the surviving shard bytes it decoded
+   from through the engine, over its wall), flushes and ops a flush, the
+   window
+   depth, each kernel's launches by step, and the card's name and power
+   limit. Kernel launch counts are zeroed before and read after each
+   step. The phase runs in a child process on the same card (this script
+   with ``--cluster-phase``), so the cluster's threads stay out of the
+   later phases' profiler sessions;
 6. Clay kernels against their plain versions on the card, byte-exact: B3
    and B4 over k=8,m=4,d=11, k=4,m=2 and k=4,m=3,d=6 (virtual nodes) at
    ragged L (B3 also at 64 and 32 Ki lanes, its short form; B3 and B4 from
@@ -176,6 +206,32 @@ SEED = 20261016
 ENGINE_FLUSHES = 8
 ENGINE_PRODUCERS = 4
 ENGINE_WINDOW = 3
+#: workers of the per-key executor that runs the continuations: their
+#: store copies are bound by the host's memory rate, so on an H100 host
+#: (8 cores) two land the shards as fast as four, while four slowed the
+#: engine thread's launch of a flush from ~3 ms to 11-27 ms, longer than
+#: a flush's device round (``python -m ceph_tpu_torch.bench.engine_callers``)
+ENGINE_CALLERS = 2
+
+#: phase 5c: the cluster, the north-star profile as an EC pool of a
+#: 12-OSD MiniCluster (k+m = 11 positions and one spare), written by 8
+#: client threads; two OSDs are killed for the degraded reads
+CLUSTER_OSDS = 12
+CLUSTER_PG_NUM = 32
+CLUSTER_OBJECTS = 512
+CLUSTER_CLIENTS = 8
+CLUSTER_DEGRADED_WRITES = 32
+CLUSTER_CHECKED = 16
+CLUSTER_KILLED = (3, 7)
+#: the heartbeat knobs while the two OSDs are killed: the reference's
+#: ``fast_death`` fixtures (kill -> down in ~2 s)
+FAST_DEATH = {"osd_heartbeat_interval": 0.25, "osd_heartbeat_grace": 1.0}
+#: the grace the rest of phase 5c runs with: Ceph's default
+#: ``osd_heartbeat_grace`` (the mon's beacon backstop is twice it). The
+#: repo's 4 s default is scaled for small test clusters; with 12 OSDs and
+#: the mon in one process, recovery traffic on an H100 host delayed live
+#: OSDs' beacons past its 8 s backstop, and the mon marked 9 of them down
+CLUSTER_GRACE = {"osd_heartbeat_grace": 20.0}
 
 #: the repo's Clay deployment (BASELINE.json configs[3], bench.py:546):
 #: q=4, t=3, nu=0, 64 sub-chunks per chunk
@@ -329,6 +385,10 @@ class KeyedExecutor:
     def _work(q) -> None:
         while (fn := q.get()) is not None:
             fn()
+            # drop the continuation before waiting: it holds its op's
+            # shards, views of a flush's pinned outputs, which would stay
+            # out of PyTorch's host allocator until the next op came
+            del fn
 
     def stop(self) -> None:
         for q in self._queues:
@@ -522,21 +582,22 @@ def engine_phase(dev, codec, sinfo, smi, single_flush_s) -> dict:
                 "crc32c_rows": crc32c_cuda.launches}
 
     store = landing()
-    executor = KeyedExecutor(ENGINE_PRODUCERS)
+    executor = KeyedExecutor(ENGINE_CALLERS)
 
     def engine():
         return DeviceEncodeEngine(executor.dispatch,
                                   flush_bytes=OBJECTS * OBJECT_BYTES,
                                   window=ENGINE_WINDOW)
     try:
-        # a first 3-flush burst warms the device allocator of the three
-        # slot streams and the pinned host blocks, as a running engine
-        # has them
+        # a first burst, held and landed as the drain will be, warms the
+        # device allocator of the three slot streams and the pinned host
+        # blocks the drain holds at once, as a running engine has them: a
+        # pinned block made during the drain holds PyTorch's host
+        # allocator, and the next flush's upload waits behind it
         warm = engine()
         try:
-            warm_wall = _engine_burst(warm, codec, sinfo,
-                                      objs[:3 * OBJECTS],
-                                      ENGINE_PRODUCERS)[0]
+            warm_wall = _engine_burst(warm, codec, sinfo, objs,
+                                      ENGINE_PRODUCERS, store=landing())[0]
         finally:
             warm.stop()
         telemetry().reset()
@@ -616,10 +677,10 @@ def engine_phase(dev, codec, sinfo, smi, single_flush_s) -> dict:
           "objects": n_obj, "object_bytes": OBJECT_BYTES,
           "flush_bytes": OBJECTS * OBJECT_BYTES, "window": ENGINE_WINDOW,
           "producers": ENGINE_PRODUCERS,
-          "continuations": f"per-key executor, {ENGINE_PRODUCERS} workers",
+          "continuations": f"per-key executor, {ENGINE_CALLERS} workers",
           "drain_wall_s": wall, "drain_GBps": gbytes / wall,
           "live_wall_s": live_wall, "live_GBps": gbytes / live_wall,
-          "warm_burst_3_flushes_s": warm_wall,
+          "warm_burst_s": warm_wall,
           "phase5_single_flush_s": single_flush_s,
           "host_split_ms": split, "stats": stats, "stager": stager,
           "inflight_depth_hist": counters["engine_inflight_depth"],
@@ -662,6 +723,430 @@ def engine_phase(dev, codec, sinfo, smi, single_flush_s) -> dict:
     loop = engine_loop.run(device=dev, time_budget=30.0)
     emit({"phase": "engine_loop", **loop})
     return launches
+
+
+# -- the OSD chain (kernels B1, B2 through ECBackend and the engine) ------
+
+#: leaf functions of a thread that waits (lock, queue, socket, event loop
+#: poll): its samples count as idle
+_IDLE_LEAVES = frozenset(("wait", "acquire", "get", "select", "poll",
+                          "_wait_for_tstate_lock", "sleep", "epoll",
+                          "_read_from_self", "accept", "readexactly"))
+
+
+#: the inclusive counts name the port's own functions only
+_PORT_DIR = "/ceph_tpu_torch/"
+
+
+class StackSampler:
+    """The host split of a step: a thread that reads every other
+    thread's Python stack every ``interval`` s (``sys._current_frames``)
+    and counts, over the samples of busy threads, the thread group (the
+    name without its index), the leaf function and each function on the
+    stack. Shares are of busy samples; a busy sample is a thread that was
+    running Python or inside a call that had not returned (a numpy or
+    torch kernel, a copy, or a wait for the GIL). Inclusive counts name
+    the port's functions only."""
+
+    def __init__(self, interval: float = 0.005) -> None:
+        self.interval = interval
+        self.ticks = 0
+        self.busy = 0
+        self.idle = 0
+        self.groups: dict = {}
+        self.leaves: dict = {}
+        self.inclusive: dict = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="stack-sampler")
+
+    def __enter__(self) -> "StackSampler":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+
+    def _run(self) -> None:
+        me = threading.get_ident()
+        names = {}
+        while not self._stop.wait(self.interval):
+            self.ticks += 1
+            if len(names) != threading.active_count():
+                names = {t.ident: t.name for t in threading.enumerate()}
+            for tid, frame in sys._current_frames().items():
+                if tid == me:
+                    continue
+                if frame.f_code.co_name in _IDLE_LEAVES:
+                    self.idle += 1
+                    continue
+                self.busy += 1
+                group = "".join(ch for ch in names.get(tid, "?")
+                                if not ch.isdigit()).rstrip("-.")
+                self.groups[group] = self.groups.get(group, 0) + 1
+                leaf = _frame_name(frame)
+                self.leaves[leaf] = self.leaves.get(leaf, 0) + 1
+                seen = set()
+                while frame is not None:
+                    name = _frame_name(frame)
+                    if name not in seen and \
+                            _PORT_DIR in frame.f_code.co_filename:
+                        seen.add(name)
+                        self.inclusive[name] = \
+                            self.inclusive.get(name, 0) + 1
+                    frame = frame.f_back
+
+    def report(self, top: int = 12) -> dict:
+        def shares(counts):
+            best = sorted(counts.items(), key=lambda kv: -kv[1])[:top]
+            return [[name, round(n / max(self.busy, 1), 4)]
+                    for name, n in best]
+        return {"interval_s": self.interval, "ticks": self.ticks,
+                "busy_samples": self.busy, "idle_samples": self.idle,
+                "busy_threads_mean": self.busy / max(self.ticks, 1),
+                "thread_groups": shares(self.groups),
+                "leaf": shares(self.leaves),
+                "inclusive": shares(self.inclusive)}
+
+
+def _frame_name(frame) -> str:
+    path = frame.f_code.co_filename
+    mod = path.rsplit("/", 2)
+    return f"{'/'.join(mod[-2:])}:{frame.f_code.co_name}"
+
+
+def _threaded(fn, n_items: int, threads: int) -> float:
+    """Run ``fn(i)`` for every item, item i on thread i mod ``threads``;
+    returns the wall time, re-raising the first failure."""
+    errs: list = []
+
+    def run(t):
+        try:
+            for i in range(t, n_items, threads):
+                fn(i)
+        except BaseException as exc:       # re-raised below
+            errs.append(exc)
+
+    ts = [threading.Thread(target=run, args=(t,)) for t in range(threads)]
+    t0 = time.perf_counter()
+    for th in ts:
+        th.start()
+    for th in ts:
+        th.join()
+    wall = time.perf_counter() - t0
+    if errs:
+        raise errs[0]
+    return wall
+
+
+@contextlib.contextmanager
+def _heartbeat_knobs(conf, knobs: dict):
+    """Set the heartbeat ``knobs`` for the block, then restore them. The
+    mon reads them at each tick and failure report; an OSD keeps the
+    interval and grace it started with."""
+    old = {k: conf[k] for k in knobs}
+    for key, val in knobs.items():
+        conf.set(key, val)
+    try:
+        yield
+    finally:
+        for key, val in old.items():
+            conf.set(key, val)
+
+
+def _check_cluster_shards(cluster, pool_id: int, oids, pays, codec) -> int:
+    """Every shard of ``oids`` read straight from its OSD's store: the data
+    shards against the object's bytes, the parity against the host GF
+    oracle, each ``hinfo`` crc against the host crc32c. Returns the number
+    of shards checked."""
+    from ceph_tpu_torch.ops import gf256
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd.pg import pg_cid
+    from ceph_tpu_torch.utils import checksum
+    osdmap = cluster.mon.osdmap
+    checked = 0
+    for oid in oids:
+        ps = osdmap.object_to_pg(pool_id, oid)
+        _, acting, _ = osdmap.pg_to_up_acting(pool_id, ps)
+        shards, hinfo = {}, None
+        for pos, osd in enumerate(acting):
+            store = cluster._stores[osd]
+            cid = pg_cid(pool_id, ps, pos)
+            shards[pos] = np.frombuffer(store.read(cid, oid), np.uint8)
+            attrs = store.getattrs(cid, oid)
+            h = json.loads(attrs["hinfo"])
+            check(hinfo is None or h == hinfo, f"{oid}: hinfo differs "
+                  f"between shards")
+            hinfo = h
+        data = np.frombuffer(pays[oid], np.uint8)
+        pad = -len(data) % (K * CHUNK)
+        data = np.concatenate([data, np.zeros(pad, np.uint8)])
+        want = data.reshape(-1, K, CHUNK).transpose(1, 0, 2).reshape(K, -1)
+        for i in range(K):
+            check(np.array_equal(shards[i], want[i]),
+                  f"{oid}: data shard {i} differs from the object")
+        parity = gf256.gf_matvec_chunks(codec.coding_matrix, want)
+        for j in range(M):
+            check(np.array_equal(shards[K + j], parity[j]),
+                  f"{oid}: parity {j} differs from the host GF oracle")
+        for pos, shard in shards.items():
+            check(hinfo["hashes"][pos] ==
+                  checksum.crc32c(shard, ec_util.HINFO_SEED),
+                  f"{oid}: hinfo crc of shard {pos}")
+        checked += len(shards)
+    return checked
+
+
+def cluster_phase(smi: str, backend: str = "cuda",
+                  n_obj: int = CLUSTER_OBJECTS) -> dict:
+    """Phase 5c: client writes and degraded reads of an RS k=8,m=3 pool
+    through the port's OSD chain (see the module docstring). Returns the
+    B1/B2 launch counts of each step; ``backend="torch"`` runs the plain
+    versions (a rehearsal on the CPU, where no launch is counted)."""
+    from ceph_tpu_torch.client.rados import RadosError
+    from ceph_tpu_torch.models import instance
+    from ceph_tpu_torch.ops import crc32c_cuda, gf_cuda
+    from ceph_tpu_torch.osd.osd import ENOENT
+    from ceph_tpu_torch.qa.cluster import MiniCluster
+    from ceph_tpu_torch.utils.config import g_conf
+
+    on_card = backend == "cuda"
+    rng = np.random.default_rng(SEED + 13)
+    extra = CLUSTER_DEGRADED_WRITES
+    data = rng.integers(0, 256, (n_obj + extra) * OBJECT_BYTES,
+                        dtype=np.uint8)
+    pays = {f"obj{i}": data[i * OBJECT_BYTES:(i + 1) * OBJECT_BYTES]
+            .tobytes() for i in range(n_obj + extra)}
+    del data
+    oids = [f"obj{i}" for i in range(n_obj)]
+    late = [f"obj{i}" for i in range(n_obj, n_obj + extra)]
+    host_codec = instance().factory(
+        "isa", {"k": str(K), "m": str(M), "technique": "reed_sol_van",
+                "backend": "numpy"}, device="cpu")
+    launches: dict = {}
+    walls: dict = {}
+
+    def reset():
+        gf_cuda.reset_launches()
+        crc32c_cuda.reset_launches()
+
+    def read_back(names, io, label):
+        def one(i):
+            check(io.read(names[i]) == pays[names[i]],
+                  f"{label} read of {names[i]}")
+        return _threaded(one, len(names), CLUSTER_CLIENTS)
+
+    host_split: dict = {}
+
+    def step(label, fn, sampled: bool = False):
+        reset()
+        with StackSampler() if sampled else contextlib.nullcontext() \
+                as sampler:
+            walls[label] = fn()
+        launches[label] = {"gf_matvec": gf_cuda.launches,
+                           "crc32c_rows": crc32c_cuda.launches}
+        if sampled:
+            host_split[label] = sampler.report()
+
+    t_boot = time.perf_counter()
+    with _heartbeat_knobs(g_conf(), CLUSTER_GRACE), \
+            MiniCluster(n_osds=CLUSTER_OSDS) as cluster:
+        boot_s = time.perf_counter() - t_boot
+        cluster.create_ec_pool("rbd_ec", k=K, m=M, plugin="isa",
+                               technique="reed_sol_van",
+                               pg_num=CLUSTER_PG_NUM, backend=backend)
+        pool_id = cluster.mon.osdmap.pool_by_name["rbd_ec"]
+        check(cluster.mon.osdmap.pools[pool_id].stripe_unit == CHUNK,
+              "pool stripe unit")
+        rados = cluster.client()
+        io = rados.open_ioctx("rbd_ec")
+        io.op_timeout = 600.0
+
+        def write_all():
+            return _threaded(lambda i: io.write_full(oids[i], pays[oids[i]]),
+                             n_obj, CLUSTER_CLIENTS)
+
+        step("write", write_all, sampled=True)
+        handle = next(o._device_engine for o in cluster.osds.values()
+                      if o._device_engine is not None)
+        write_stats = dict(handle.stats)
+
+        def barriers():
+            t0 = time.perf_counter()
+            io.write_full("ord", b"A" * 8192)
+            io.append("ord", b"B" * 100)
+            check(io.read("ord") == b"A" * 8192 + b"B" * 100,
+                  "write_full then append through the engine barrier")
+            io.write_full("gone", b"X" * 4096)
+            io.remove("gone")
+            try:
+                io.read("gone")
+                code = 0
+            except RadosError as exc:
+                code = exc.code
+            check(code == ENOENT, f"write then remove: read gave {code}")
+            return time.perf_counter() - t0
+
+        step("barriers", barriers)
+        step("read", lambda: read_back(oids, io, "clean"), sampled=True)
+        stats = dict(handle.stats)
+        check(stats["ops"] >= n_obj, f"engine ops {stats['ops']} < {n_obj}")
+        check(stats["max_batch_ops"] > 1, f"no batching: {stats}")
+        check(stats["errors"] == 0, f"engine errors: {stats}")
+        fused = write_stats["flushes"] - write_stats["host_flushes"]
+        if on_card:
+            w = launches["write"]
+            check(w["gf_matvec"] > 0 and w["crc32c_rows"] > 0,
+                  f"write launches {w}")
+            check(w["crc32c_rows"] == fused,
+                  f"B2 launches {w['crc32c_rows']} != fused flushes {fused}")
+        # 16 objects in 16 different PGs, every shard from its store
+        osdmap = cluster.mon.osdmap
+        picked, seen = [], set()
+        for oid in oids:
+            ps = osdmap.object_to_pg(pool_id, oid)
+            if ps not in seen:
+                seen.add(ps)
+                picked.append(oid)
+            if len(picked) == CLUSTER_CHECKED:
+                break
+        shards_checked = _check_cluster_shards(cluster, pool_id, picked,
+                                               pays, host_codec)
+
+        # -- degraded: two OSDs killed --------------------------------
+        # PGs whose data positions lose two shards: not XOR-decodable,
+        # so their reads decode through B1 (the acting sets the shards
+        # were written to, before the kill)
+        lost_two_data = 0
+        for ps in range(CLUSTER_PG_NUM):
+            _, acting, _ = osdmap.pg_to_up_acting(pool_id, ps)
+            lost_two_data += sum(1 for osd in acting[:K]
+                                 if osd in CLUSTER_KILLED) >= 2
+        epoch = cluster.epoch()
+        t0 = time.perf_counter()
+        with _heartbeat_knobs(g_conf(), FAST_DEATH):
+            for osd in CLUSTER_KILLED:
+                cluster.kill_osd(osd)
+            for osd in CLUSTER_KILLED:
+                cluster.wait_for_osd_down(osd, timeout=60)
+        down_s = time.perf_counter() - t0
+        rados.wait_for_epoch(epoch + 1, timeout=30)
+        before = dict(handle.stats)
+        step("degraded_read", lambda: read_back(oids, io, "degraded"),
+             sampled=True)
+        after = dict(handle.stats)
+        decode_ops = after["decode_ops"] - before["decode_ops"]
+        check(decode_ops > 0, f"no decode through the engine: {after}")
+        check(after["decode_errors"] == 0, f"decode errors: {after}")
+        if on_card:
+            check(launches["degraded_read"]["gf_matvec"] > 0,
+                  f"no B1 decode launch: {launches['degraded_read']}")
+
+        def degraded_writes():
+            t0 = time.perf_counter()
+            _threaded(lambda i: io.write_full(late[i], pays[late[i]]),
+                      extra, CLUSTER_CLIENTS)
+            read_back(late, io, "degraded-written")
+            return time.perf_counter() - t0
+
+        step("degraded_write", degraded_writes, sampled=True)
+
+        # -- recovery ----------------------------------------------------
+        def recover():
+            t0 = time.perf_counter()
+            for osd in CLUSTER_KILLED:
+                cluster.revive_osd(osd)
+            cluster.wait_for_osds_up(timeout=60)
+            cluster.wait_for_clean(timeout=600)
+            return time.perf_counter() - t0
+
+        before_rec = dict(handle.stats)
+        step("recovery", recover, sampled=True)
+        rec_stats = dict(handle.stats)
+        rec_bytes = rec_stats["decode_bytes"] - before_rec["decode_bytes"]
+        step("final_read", lambda: read_back(oids + late, io, "final"))
+        final = dict(handle.stats)
+        check(final["errors"] == 0 and final["decode_errors"] == 0,
+              f"engine errors after recovery: {final}")
+
+    gb = n_obj * OBJECT_BYTES / 1e9
+    flushes = final["flushes"]
+    out = {"phase": "cluster", "card": smi, "backend": backend,
+           "profile": "isa reed_sol_van k=8 m=3, stripe unit 4096",
+           "osds": CLUSTER_OSDS, "pg_num": CLUSTER_PG_NUM,
+           "objects": n_obj, "object_bytes": OBJECT_BYTES,
+           "clients": CLUSTER_CLIENTS, "killed": list(CLUSTER_KILLED),
+           "heartbeat": {**CLUSTER_GRACE, "while_killing": FAST_DEATH},
+           "boot_s": boot_s,
+           "write_s": walls["write"], "write_GBps": gb / walls["write"],
+           "barriers_s": walls["barriers"],
+           "read_s": walls["read"], "read_GBps": gb / walls["read"],
+           "down_s": down_s, "pgs_lost_two_data": lost_two_data,
+           "degraded_read_s": walls["degraded_read"],
+           "degraded_read_GBps": gb / walls["degraded_read"],
+           "degraded_writes": extra,
+           "degraded_write_read_s": walls["degraded_write"],
+           "recovery_s": walls["recovery"],
+           "recovery_decode_ops": rec_stats["decode_ops"]
+           - before_rec["decode_ops"],
+           # the surviving shard bytes the recovery decoded from, through
+           # the engine (its decode_bytes)
+           "recovery_decode_bytes": rec_bytes,
+           "recovery_GBps": rec_bytes / 1e9 / walls["recovery"],
+           "final_read_s": walls["final_read"],
+           "final_read_GBps": (n_obj + extra) * OBJECT_BYTES / 1e9
+           / walls["final_read"],
+           "flushes": flushes, "host_flushes": final["host_flushes"],
+           "ops_per_flush": final["ops"] / max(flushes, 1),
+           "write_flushes": write_stats["flushes"],
+           "write_ops_per_flush": write_stats["ops"]
+           / max(write_stats["flushes"], 1),
+           "max_batch_ops": final["max_batch_ops"],
+           "window_depth_max": final["max_inflight_depth"],
+           "degraded_decode_ops": decode_ops,
+           "decode_flushes": final["decode_flushes"],
+           "decode_ops": final["decode_ops"],
+           "shards_checked": shards_checked, "launches": launches,
+           "stats": final, "host_split": host_split}
+    emit(out)
+    return launches
+
+
+#: the argument that runs phase 5c alone (the child process of
+#: :func:`cluster_phase_in_child`)
+CLUSTER_CHILD_ARG = "--cluster-phase"
+
+
+def cluster_phase_in_child() -> dict:
+    """Phase 5c in a child process on the same card, so the cluster's
+    ~150 threads and whatever they leave behind stay out of the later
+    phases' profiler sessions (torch.profiler has returned empty sessions
+    after them). The child prints the ``cluster`` line, echoed here, and
+    exits non-zero on any failed check. Returns its launch counts."""
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), CLUSTER_CHILD_ARG],
+        capture_output=True, text=True, timeout=900)
+    sys.stderr.write(proc.stderr)
+    lines = [line for line in proc.stdout.splitlines()
+             if line.startswith('{"phase": "cluster"')]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"phase 5c child exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]}")
+    print(lines[0], flush=True)
+    return json.loads(lines[0])["launches"]
+
+
+def cluster_child_main() -> int:
+    """Phase 5c alone, on the card (run by :func:`cluster_phase_in_child`)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; no GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    torch.cuda.set_device(0)
+    cluster_phase(nvidia_smi_line())
+    return 0
 
 
 @contextlib.contextmanager
@@ -732,7 +1217,7 @@ def engine_profile_phase(dev, codec, sinfo) -> None:
     from torch.profiler import ProfilerActivity, profile
     session = profile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA])
-    executor = KeyedExecutor(ENGINE_PRODUCERS)
+    executor = KeyedExecutor(ENGINE_CALLERS)
     eng = DeviceEncodeEngine(executor.dispatch,
                              flush_bytes=OBJECTS * OBJECT_BYTES,
                              window=ENGINE_WINDOW)
@@ -1695,6 +2180,9 @@ def main() -> int:
     del results, streams
     engine_phase(dev, codec, sinfo, smi, flush_s)
 
+    # -- 5c. the OSD chain: a MiniCluster pool on the card -----------------
+    cluster_launches = cluster_phase_in_child()
+
     # -- 6-8. Clay -------------------------------------------------------
     clay = clay_phases(dev, hbm, smi)
 
@@ -1725,6 +2213,8 @@ def main() -> int:
          else "operations",
          "library_ms": None, "pass": True,
          "device_ms": timings["encode"]["device_ms"],
+         "cluster_launches": {step: n["gf_matvec"] for step, n
+                              in cluster_launches.items()},
          "decode": {label: {key: timings[label][key] for key in
                             ("ms", "device_ms", "bound_ms")}
                     for label in ("decode e=1", "decode e=2")}},
@@ -1737,7 +2227,9 @@ def main() -> int:
          "bound_by": "bytes" if b2_bound_bytes >= b2_bound_ops
          else "operations",
          "library_ms": None, "pass": True,
-         "wrapper_ms": b2_wrapper_s * 1e3, "device_ms": b2_dev_ms},
+         "wrapper_ms": b2_wrapper_s * 1e3, "device_ms": b2_dev_ms,
+         "cluster_launches": {step: n["crc32c_rows"] for step, n
+                              in cluster_launches.items()}},
     ] + clay + [
         {"name": "gf_xor (B6)", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/gf_xor.cu",
@@ -1752,4 +2244,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(cluster_child_main() if CLUSTER_CHILD_ARG in sys.argv[1:]
+                     else main())

@@ -39,6 +39,21 @@ def test_host_crc32c_matches_reference():
         assert checksum.crc32c_rows(x, s).tolist() == want
 
 
+@pytest.mark.parametrize("length", (4095, 4096, 4097, 1024 * 5 + 3,
+                                    128 << 10, (1 << 20) + 1))
+def test_host_crc32c_row_parallel_matches_loop_and_reference(length):
+    """From 4 KiB the host crc runs row-parallel (position tables and
+    register moves across rows): equal to the table loop and to the
+    reference's crc32c for every seed, with and without a partial
+    leading row."""
+    x = _rows(length, 1, length)[0]
+    for s in SEEDS + (0x1234,):
+        want = checksum.crc32c_sw(x, s)
+        assert checksum.crc32c(x, s) == want
+        assert checksum.crc32c(x.tobytes(), s) == want
+        assert ref_ck.crc32c(x.tobytes(), s) == want
+
+
 @pytest.mark.parametrize("length", LENGTHS)
 def test_linear_crc_matches_jax_and_oracle(length):
     x = _rows(length, 4, length)

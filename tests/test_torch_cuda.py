@@ -471,3 +471,49 @@ def test_xor_strip_kernel_rejects_what_it_does_not_take(cuda):
                             cuda)
     with pytest.raises(ValueError):
         big.encode_strips(_strips(2, 8 * (gf_xor_cuda.MAX_K_IN + 1), 1, cuda))
+
+
+def test_cluster_on_cuda_write_degraded_read_revive(cuda):
+    """The OSD chain on the card: a k=2,m=1 ``backend=cuda`` pool on 4
+    OSDs writes through the shared engine (fused flush: B1 + B2), reads
+    back, reads degraded with one OSD killed, and recovers on revive."""
+    from ceph_tpu_torch.qa.cluster import MiniCluster
+    from ceph_tpu_torch.utils.config import g_conf
+    conf = g_conf()
+    old = {k: conf[k] for k in ("osd_heartbeat_interval",
+                                "osd_heartbeat_grace")}
+    conf.set("osd_heartbeat_interval", 0.25)
+    conf.set("osd_heartbeat_grace", 1.0)
+    try:
+        gf_cuda.reset_launches()
+        crc32c_cuda.reset_launches()
+        with MiniCluster(n_osds=4) as cluster:
+            cluster.create_ec_pool("cu", k=2, m=1, pg_num=8, backend="cuda")
+            io = cluster.client().open_ioctx("cu")
+            # past the engine's small-flush host route (512 KiB), so
+            # even a flush of one op launches on the card
+            pays = {f"o{i}": _bytes(900 + i, (600 << 10) + i).tobytes()
+                    for i in range(12)}
+            for oid, pay in pays.items():
+                io.write_full(oid, pay)
+            for oid, pay in pays.items():
+                assert io.read(oid) == pay
+            stats = [o._device_engine.stats for o in cluster.osds.values()
+                     if o._device_engine is not None]
+            assert max(s["ops"] for s in stats) >= len(pays), stats
+            assert gf_cuda.launches > 0 and crc32c_cuda.launches > 0
+            cluster.kill_osd(3)
+            cluster.wait_for_osd_down(3, timeout=30)
+            for oid, pay in pays.items():
+                assert io.read(oid) == pay
+            cluster.revive_osd(3)
+            cluster.wait_for_clean(timeout=60)
+            for oid, pay in pays.items():
+                assert io.read(oid) == pay
+            stats = [o._device_engine.stats for o in cluster.osds.values()
+                     if o._device_engine is not None]
+            assert max(s["errors"] for s in stats) == 0, stats
+            assert max(s["decode_errors"] for s in stats) == 0, stats
+    finally:
+        for k, v in old.items():
+            conf.set(k, v)

@@ -876,6 +876,23 @@ def test_engine_loop_runs_the_flush_device_step_on_cpu():
     assert "projection_GBps" not in out
 
 
+@pytest.mark.parametrize("workers", [1, 2])
+def test_engine_callers_drain_on_cpu(monkeypatch, workers):
+    """The caller-count harness drives phase 5b's held drain through the
+    fused route (plain versions on the CPU, 2 flushes of 4 x 64 KiB),
+    checks stored shards against the host oracle, and reports each
+    flush's host split."""
+    from ceph_tpu_torch.bench import engine_callers
+    monkeypatch.setenv("CEPH_TPU_HOST_FLUSH_BYTES", "0")
+    monkeypatch.setenv("CEPH_TPU_FUSE_CRC", "1")
+    out = engine_callers.trial(workers, flushes=2, objects=4,
+                               object_bytes=64 << 10, device="cpu")
+    assert out["workers"] == workers and out["flushes"] == 2
+    assert out["max_inflight_depth"] >= 1 and out["drain_s"] > 0
+    assert sorted(out["split_ms"]) == ["alloc", "launch", "upload", "wait"]
+    assert all(len(v) == 2 for v in out["split_ms"].values())
+
+
 def test_stager_sizes_segments_by_load():
     """Under light load a segment starts small and doubles as ops land,
     as the reference's buffer does, so a 4 KiB op holds no flush-sized
