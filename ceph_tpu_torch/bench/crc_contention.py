@@ -8,13 +8,17 @@ matters there is how many numpy calls a crc makes, not only its time
 alone. This times, on a 128 KiB shard (one k=8 chunk stream of a 1 MiB
 object):
 
-- ``crc32c``: the row-parallel path (a handful of numpy calls);
+- ``crc32c``: the native library's crc (one ctypes call, which gives up
+  the GIL for its length);
+- ``plain``: ``crc32c_plain``, the row-parallel numpy path (a handful of
+  numpy calls), which the OSD ran before the native library was built;
 - ``rows_per_position``: ``crc32c_rows`` on the same bytes as [256, 512],
   one numpy step a byte position (512 calls), the shape of a loop that
   walks positions;
 
-each alone, beside one thread spinning in Python, and (``crc32c``) from 8
-threads at once. Host clock, median of the repeats; prints one JSON line:
+each alone, beside one thread spinning in Python, and (``crc32c`` and
+``plain``) from 8 threads at once. Host clock, median of the repeats;
+prints one JSON line:
 
     python -m ceph_tpu_torch.bench.crc_contention [--repeats N]
 """
@@ -67,31 +71,42 @@ def run(repeats: int = 5) -> dict:
     rows = shard.reshape(256, 512)
     want = checksum.crc32c_sw(shard[:4096])
     assert checksum.crc32c(shard[:4096]) == want
+    assert checksum.crc32c(shard) == checksum.crc32c_plain(shard)
 
     def crc():
         checksum.crc32c(shard, 0xFFFFFFFF)
+
+    def plain():
+        checksum.crc32c_plain(shard, 0xFFFFFFFF)
 
     def per_position():
         checksum.crc32c_rows(rows)
 
     crc()
+    plain()
     per_position()
     shards = [rng.integers(0, 256, SHARD_BYTES, dtype=np.uint8)
               for _ in range(8)]
 
-    def eight_threads():
-        ts = [threading.Thread(target=checksum.crc32c, args=(s,))
-              for s in shards]
-        for th in ts:
-            th.start()
-        for th in ts:
-            th.join()
+    def eight_threads(fn):
+        def run():
+            ts = [threading.Thread(target=fn, args=(s,)) for s in shards]
+            for th in ts:
+                th.start()
+            for th in ts:
+                th.join()
+        return run
 
     return {"bench": "crc_contention", "host_cpus": os.cpu_count(),
             "shard_bytes": SHARD_BYTES, "repeats": repeats,
             "crc32c_ms": _median_ms(crc, repeats),
             "crc32c_beside_spinner_ms": _beside_spinner(crc, repeats),
-            "crc32c_8_threads_wall_ms": _median_ms(eight_threads, repeats),
+            "crc32c_8_threads_wall_ms": _median_ms(
+                eight_threads(checksum.crc32c), repeats),
+            "plain_ms": _median_ms(plain, repeats),
+            "plain_beside_spinner_ms": _beside_spinner(plain, repeats),
+            "plain_8_threads_wall_ms": _median_ms(
+                eight_threads(checksum.crc32c_plain), repeats),
             "rows_per_position_ms": _median_ms(per_position, repeats),
             "rows_per_position_beside_spinner_ms":
                 _beside_spinner(per_position, max(1, repeats // 2))}

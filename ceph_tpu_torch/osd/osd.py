@@ -2554,11 +2554,13 @@ class OSD:
 
     # -- scrub (PGBackend::be_compare_scrubmaps role) -----------------
     def scrub_engine(self):
-        """The per-OSD deep-scrub engine (the reference's
-        osd/scrub_engine.py: the batched device verify + sparse-repair
-        subsystem) is not ported yet: a deep scrub raises."""
-        raise NotImplementedError(
-            "deep scrub engine not ported (ROADMAP A.4)")
+        """Lazy per-OSD deep-scrub engine (osd/scrub_engine.py: the
+        batched device verify + sparse-repair subsystem)."""
+        engine = getattr(self, "_scrub_engine", None)
+        if engine is None:
+            from ceph_tpu_torch.osd.scrub_engine import DeepScrubEngine
+            engine = self._scrub_engine = DeepScrubEngine(self)
+        return engine
 
     def scrub_pg(self, pgid: tuple[int, int], repair: bool = True,
                  timeout: float = 60.0, deep: bool = False) -> dict:

@@ -1,14 +1,17 @@
-"""Host crc32c — the port's oracle for the device crc path.
+"""Checksums: crc32c / xxhash32 / xxhash64 with block-wise Checksummer.
 
-Port of ``crc32c_sw`` and ``crc32c`` from ``ceph_tpu/utils/checksum.py``
-(the sctp_crc32 baseline role of the reference's src/common/crc32c*.cc).
-The reference's ``crc32c`` takes its native library when built; the
-port's runs row-parallel in numpy from 4 KiB (the OSD chain verifies
-every shard it serves with it). Plus a numpy version vectorised ACROSS
-buffers (:func:`crc32c_rows`): one numpy step per byte position for a
-whole batch of equal-length buffers, which checks every segment of a
-full-size flush in seconds where the per-byte Python loop would take
-minutes.
+Port of ``ceph_tpu/utils/checksum.py`` (the role of the reference's
+src/common/Checksummer.h, algorithms enumerated at :11-19, block-wise
+calculate/verify at :202-267, and the crc32c backends
+src/common/crc32c*.{cc,s}). As in the reference, :func:`crc32c`,
+:func:`xxhash32` and :func:`xxhash64` run in the host native library
+(``ops/native_loader.py``: the SSE4.2 crc32 instruction, xxhash from the
+spec), which is built on first use; a failed build raises, there is no
+numpy fallback. The plain versions stay for the tests: the pure-python
+table loop (:func:`crc32c_sw`, the sctp_crc32 baseline role), a numpy
+version that runs row-parallel from 4 KiB (:func:`crc32c_plain`), and one
+vectorised ACROSS buffers (:func:`crc32c_rows`: one numpy step per byte
+position for a whole batch of equal-length buffers).
 
 Convention: standard CRC-32C — crc32c(b"123456789") == 0xE3069283. A
 running crc continues by passing the previous value.
@@ -19,6 +22,8 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+
+from ceph_tpu_torch.ops import native_loader
 
 #: Castagnoli polynomial, reflected
 POLY = 0x82F63B78
@@ -62,7 +67,7 @@ def crc32c_sw(data, crc: int = 0) -> int:
         & 0xFFFFFFFF
 
 
-#: row length of the row-parallel path of :func:`crc32c`
+#: row length of the row-parallel path of :func:`crc32c_plain`
 _ROW_BYTES = 1024
 #: buffers from this size take the row-parallel path
 _ROWS_MIN_BYTES = 4096
@@ -101,8 +106,14 @@ def _shift_tables() -> list[list[int]]:
 
 
 def crc32c(data, crc: int = 0) -> int:
-    """crc32c of one buffer (the reference's ``crc32c``, whose fast
-    path is its native library). From 4 KiB the buffer is cut into
+    """crc32c of one buffer through the native library (a ctypes call,
+    which gives up the GIL for its length)."""
+    return native_loader.crc32c(data, crc)
+
+
+def crc32c_plain(data, crc: int = 0) -> int:
+    """crc32c of one buffer in numpy, the plain version of
+    :func:`crc32c`. From 4 KiB the buffer is cut into
     1 KiB rows after its leading partial row, and the crc's linearity
     does the rest: each row's register from zero is the XOR of one
     position-table entry a byte (one gather and one reduction for all
@@ -138,3 +149,66 @@ def crc32c_rows(rows: np.ndarray, crc: int = 0) -> np.ndarray:
     for j in range(ln):
         c = tbl[(c ^ cols[j]) & 0xFF] ^ (c >> 8)
     return ~c
+
+
+def xxhash64(data, seed: int = 0) -> int:
+    """xxhash64 — host only, as in the reference: unlike crc32c it is not
+    linear over GF(2) (carry-propagating adds and multiplies mod 2^64 with
+    rotations), so it has no matrix form to fold into a device pass, and
+    the native single-core hash outruns the blob sizes involved. Reference
+    enumeration: src/common/Checksummer.h:11-19."""
+    return native_loader.xxhash64(data, seed)
+
+
+def xxhash32(data, seed: int = 0) -> int:
+    """xxhash32 — host only; see :func:`xxhash64`."""
+    return native_loader.xxhash32(data, seed)
+
+
+#: algorithm name -> (width_bytes, fn) — Checksummer.h:11-19 enumerates
+#: crc32c, crc32c_16, crc32c_8, xxhash32, xxhash64
+ALGORITHMS = {
+    "crc32c": (4, lambda d: crc32c(d)),
+    "crc32c_16": (2, lambda d: crc32c(d) & 0xFFFF),
+    "crc32c_8": (1, lambda d: crc32c(d) & 0xFF),
+    "xxhash32": (4, lambda d: xxhash32(d)),
+    "xxhash64": (8, lambda d: xxhash64(d)),
+}
+
+
+class Checksummer:
+    """Block-wise checksum calculate/verify (Checksummer.h:202-267).
+
+    BlueStore checksums blobs at ``csum_block_size`` granularity (default
+    4 KiB, csum_type crc32c — BlueStore.h:1925); verify returns the offset
+    of the first bad block, or -1 if all match.
+    """
+
+    def __init__(self, algorithm: str | None = None,
+                 csum_block_size: int | None = None) -> None:
+        if algorithm is None or csum_block_size is None:
+            # defaults come from the bluestore_csum_* options
+            from ceph_tpu_torch.utils.config import g_conf
+            if algorithm is None:
+                algorithm = g_conf()["bluestore_csum_type"]
+            if csum_block_size is None:
+                csum_block_size = g_conf()["bluestore_csum_block_size"]
+        if algorithm not in ALGORITHMS:
+            raise ValueError(f"unknown checksum algorithm {algorithm!r}")
+        self.algorithm = algorithm
+        self.csum_block_size = csum_block_size
+        self.width, self._fn = ALGORITHMS[algorithm]
+
+    def calculate(self, data) -> list[int]:
+        buf = _as_bytes(data)
+        bs = self.csum_block_size
+        return [self._fn(buf[o:o + bs]) for o in range(0, len(buf), bs)]
+
+    def verify(self, data, csums: list[int]) -> int:
+        """-1 if ok, else byte offset of first mismatching block."""
+        buf = _as_bytes(data)
+        bs = self.csum_block_size
+        for idx, o in enumerate(range(0, len(buf), bs)):
+            if idx >= len(csums) or self._fn(buf[o:o + bs]) != csums[idx]:
+                return o
+        return -1

@@ -97,6 +97,37 @@ Phases, each printing one JSON line:
    step. The phase runs in a child process on the same card (this script
    with ``--cluster-phase``), so the cluster's threads stay out of the
    later phases' profiler sessions;
+5d. scrub: deep scrub on the card over the durable store, 5c's
+   deployment on BlockStore (the BlueStore role; its data files in a
+   temporary directory under ``build/scrub/``): 12 OSDs, the ISA k=8,m=3
+   ``backend=cuda`` pool with ``pg_num=32``, 512 objects of 1 MiB (from the
+   seed) written from 8 client threads; then a silent bit flip
+   (``BlockStore.inject_bit_flip``: the blob is rewritten under a matching
+   csum, so reads return the rot with no EIO) of 4 bytes in each of 11
+   objects of different PGs, object i at shard position i (8 data, 3
+   parity), and a deep scrub of the pool: per PG the shards are gathered
+   raw, verified in batches (``scrub_engine.verify_batch``: B1 re-encodes
+   the data shards, a compare gives the mismatch bitmap, B2 + stage 2 the
+   linear crcs, about 22 MiB of shards a batch) and the convicted shards
+   are rebuilt through ``ECBackend._decode`` and pushed. Checked: exactly
+   the flipped (object, position) pairs are convicted and every one is
+   repaired, a second deep scrub and a shallow scrub are clean, every
+   object reads back equal to its payload, the engines' ``device_errors``
+   are 0, B1 and B2 launched at least once a verify batch in each deep
+   scrub, and one gathered batch (the first with a mismatch) verifies on
+   the card to the plain version's bitmap and crcs on the CPU, byte for
+   byte. The ``scrub`` line prints the write wall, the deep scrub's wall
+   split into gather, verify and repair, the host ms of each verify batch
+   (upload, program, download), the verify program's events ms on the
+   gathered batch, resident, beside its bound, shard GB verified a
+   second, batches and objects a batch, and B1 and B2 launches by step
+   (counts zeroed before and read after each step). It runs in a child
+   process like 5c (``--scrub-phase``), which takes no profiler session,
+   and it runs last, after phase 13: profiler sessions in this process
+   after its child have come back empty. The ``scrub_times`` line, in
+   phase 5, gives the verify program's events and profiler device ms at
+   5d's batch shape (16 objects of 11 shards of 128 KiB: seeded bytes,
+   their parity and one flip) beside its bound;
 6. Clay kernels against their plain versions on the card, byte-exact: B3
    and B4 over k=8,m=4,d=11, k=4,m=2 and k=4,m=3,d=6 (virtual nodes) at
    ragged L (B3 also at 64 and 32 Ki lanes, its short form; B3 and B4 from
@@ -232,6 +263,14 @@ FAST_DEATH = {"osd_heartbeat_interval": 0.25, "osd_heartbeat_grace": 1.0}
 #: the mon in one process, recovery traffic on an H100 host delayed live
 #: OSDs' beacons past its 8 s backstop, and the mon marked 9 of them down
 CLUSTER_GRACE = {"osd_heartbeat_grace": 20.0}
+
+#: phase 5d: deep scrub, 5c's deployment on BlockStore (the durable store
+#: of the BlueStore role): 512 objects of 1 MiB, then one silent bit flip
+#: in each of 11 objects, object i at shard position i (8 data, 3 parity)
+SCRUB_OBJECTS = 512
+SCRUB_FLIP_BYTES = 4
+#: objects a PG, and so a verify batch, in phase 5d (512 over 32 PGs)
+SCRUB_BATCH_OBJECTS = SCRUB_OBJECTS // CLUSTER_PG_NUM
 
 #: the repo's Clay deployment (BASELINE.json configs[3], bench.py:546):
 #: q=4, t=3, nu=0, 64 sub-chunks per chunk
@@ -1113,40 +1152,287 @@ def cluster_phase(smi: str, backend: str = "cuda",
     return launches
 
 
-#: the argument that runs phase 5c alone (the child process of
-#: :func:`cluster_phase_in_child`)
+#: the arguments that run phase 5c and phase 5d alone (each the child
+#: process of :func:`phase_in_child`)
 CLUSTER_CHILD_ARG = "--cluster-phase"
+SCRUB_CHILD_ARG = "--scrub-phase"
 
 
-def cluster_phase_in_child() -> dict:
-    """Phase 5c in a child process on the same card, so the cluster's
-    ~150 threads and whatever they leave behind stay out of the later
-    phases' profiler sessions (torch.profiler has returned empty sessions
-    after them). The child prints the ``cluster`` line, echoed here, and
-    exits non-zero on any failed check. Returns its launch counts."""
+def phase_in_child(arg: str, phase: str, timeout: float = 900) -> dict:
+    """Run a cluster phase in a child process on the same card (this
+    script with ``arg``), so the cluster's ~150 threads and whatever they
+    leave behind stay out of the later phases' profiler sessions
+    (torch.profiler has returned empty sessions after them). The child
+    prints its ``phase`` line, echoed here, and exits non-zero on any
+    failed check. Returns that line."""
     proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), CLUSTER_CHILD_ARG],
-        capture_output=True, text=True, timeout=900)
+        [sys.executable, str(Path(__file__).resolve()), arg],
+        capture_output=True, text=True, timeout=timeout)
     sys.stderr.write(proc.stderr)
     lines = [line for line in proc.stdout.splitlines()
-             if line.startswith('{"phase": "cluster"')]
+             if line.startswith(f'{{"phase": "{phase}"')]
     check(proc.returncode == 0 and len(lines) == 1,
-          f"phase 5c child exited {proc.returncode}: "
-          f"{proc.stdout[-2000:]}")
+          f"{arg} child exited {proc.returncode}: {proc.stdout[-2000:]}")
     print(lines[0], flush=True)
-    return json.loads(lines[0])["launches"]
+    return json.loads(lines[0])
 
 
-def cluster_child_main() -> int:
-    """Phase 5c alone, on the card (run by :func:`cluster_phase_in_child`)."""
+def child_main(phase) -> int:
+    """One cluster phase alone, on the card (the child of
+    :func:`phase_in_child`)."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no GPU",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     torch.cuda.set_device(0)
-    cluster_phase(nvidia_smi_line())
+    phase(nvidia_smi_line())
     return 0
+
+
+@contextlib.contextmanager
+def _scrub_split():
+    """Time the deep scrub's gather, verify and repair (each
+    ``DeepScrubEngine`` step, summed over the PGs, which the pool scrub
+    visits one after the other) and every ``verify_batch`` call (upload,
+    program, download), and keep one verified batch, the first with a
+    mismatch, for the check against the plain version."""
+    from ceph_tpu_torch.osd import scrub_engine as se
+    split = {"gather_s": 0.0, "verify_s": 0.0, "repair_s": 0.0,
+             "verify_calls_s": [], "batch": None}
+    lock = threading.Lock()
+    saved = [(se.DeepScrubEngine, name, getattr(se.DeepScrubEngine, name))
+             for name in ("_gather", "_verify_chunk", "_repair")]
+    saved.append((se, "verify_batch", se.verify_batch))
+
+    def timed(real, key):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                with lock:
+                    split[key] += time.perf_counter() - t0
+        return wrapper
+
+    def verify_batch(mat, k, batch, mesh=None, device="cuda"):
+        t0 = time.perf_counter()
+        mism, lin = saved[-1][2](mat, k, batch, mesh=mesh, device=device)
+        with lock:
+            split["verify_calls_s"].append(time.perf_counter() - t0)
+            if split["batch"] is None or (mism.any() and
+                                          not split["batch"][3]):
+                split["batch"] = (mat, k, batch, bool(mism.any()))
+        return mism, lin
+
+    for (owner, name, real), key in zip(saved[:3], ("gather_s", "verify_s",
+                                                    "repair_s")):
+        setattr(owner, name, timed(real, key))
+    se.verify_batch = verify_batch
+    try:
+        yield split
+    finally:
+        for owner, name, real in saved:
+            setattr(owner, name, real)
+
+
+def verify_times(dev, mat, batch, hbm, profiled: bool) -> dict:
+    """The deep-scrub verify program of one batch, resident on the card:
+    events ms a batch and, with ``profiled``, the profiler's device ms,
+    beside its bound (each input byte read once and each output written
+    once over the memory rate, against B1's GF products and B2's row
+    products at the int8 tensor peak, as PERF.md section 2 counts them).
+    The phase 5d child takes no profiler session (the main process takes
+    the device time at its batch shape, in phase 5)."""
+    from ceph_tpu_torch.bench.b5_ab import device_ms
+    from ceph_tpu_torch.bench.ec_bench import time_cuda
+    from ceph_tpu_torch.osd import scrub_engine as se
+    nobj, n, l_b = batch.shape
+    m = n - K
+    nobj_b = se._pow2(nobj, 1)
+    padded = np.zeros((nobj_b, n, l_b), np.uint8)
+    padded[:nobj] = batch
+    dev_batch = torch.from_numpy(padded).to(dev)
+    fn = se.verify_fn(mat, K, l_b, nobj_b)
+    t_bytes = (nobj_b * n * l_b + nobj_b * m + nobj_b * n * 8) / hbm
+    t_ops = (2 * 64 * m * K * nobj_b * l_b
+             + 2 * 4096 * 32 * nobj_b * n * l_b // 512) / H100_INT8_OPS_PER_S
+    out = {"objects": nobj, "objects_padded": nobj_b, "shard_bytes": l_b,
+           "batch_bytes": nobj_b * n * l_b,
+           "ms": time_cuda(lambda: fn(dev_batch), 20) * 1e3,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if profiled:
+        out["device_ms"] = device_ms(lambda: fn(dev_batch), kernel="")
+    return out
+
+
+def scrub_phase(smi: str, backend: str = "cuda",
+                n_obj: int = SCRUB_OBJECTS) -> dict:
+    """Phase 5d: deep scrub on the card over BlockStore (see the module
+    docstring). Returns the B1/B2 launch counts of each step;
+    ``backend="torch"`` runs the plain versions (a rehearsal on the CPU,
+    where no launch is counted and no device time is taken)."""
+    import tempfile
+    from ceph_tpu_torch.ops import crc32c_cuda, gf_cuda
+    from ceph_tpu_torch.osd import scrub_engine as se
+    from ceph_tpu_torch.osd.pg import pg_cid
+    from ceph_tpu_torch.qa.cluster import MiniCluster
+    from ceph_tpu_torch.utils.config import g_conf
+
+    on_card = backend == "cuda"
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    rng = np.random.default_rng(SEED + 17)
+    data = rng.integers(0, 256, n_obj * OBJECT_BYTES, dtype=np.uint8)
+    pays = {f"obj{i}": data[i * OBJECT_BYTES:(i + 1) * OBJECT_BYTES]
+            .tobytes() for i in range(n_obj)}
+    del data
+    oids = sorted(pays, key=lambda o: int(o[3:]))
+    launches: dict = {}
+    walls: dict = {}
+
+    def step(label, fn):
+        gf_cuda.reset_launches()
+        crc32c_cuda.reset_launches()
+        walls[label] = fn()
+        launches[label] = {"gf_matvec": gf_cuda.launches,
+                           "crc32c_rows": crc32c_cuda.launches}
+
+    def timed(fn):
+        def run():
+            t0 = time.perf_counter()
+            out[fn.__name__] = fn()
+            return time.perf_counter() - t0
+        return run
+
+    out: dict = {}
+    work = Path(__file__).resolve().parent / "build" / "scrub"
+    work.mkdir(parents=True, exist_ok=True)
+    t_boot = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=work) as data_dir, \
+            _heartbeat_knobs(g_conf(), CLUSTER_GRACE), \
+            MiniCluster(n_osds=CLUSTER_OSDS, store="blockstore",
+                        data_dir=data_dir) as cluster:
+        boot_s = time.perf_counter() - t_boot
+        cluster.create_ec_pool("scrub_ec", k=K, m=M, plugin="isa",
+                               technique="reed_sol_van",
+                               pg_num=CLUSTER_PG_NUM, backend=backend)
+        osdmap = cluster.mon.osdmap
+        pool_id = osdmap.pool_by_name["scrub_ec"]
+        check(osdmap.pools[pool_id].stripe_unit == CHUNK, "pool stripe unit")
+        io = cluster.client().open_ioctx("scrub_ec")
+        io.op_timeout = 600.0
+        step("write", lambda: _threaded(
+            lambda i: io.write_full(oids[i], pays[oids[i]]), n_obj,
+            CLUSTER_CLIENTS))
+
+        # one silent flip in each of K + M objects of different PGs,
+        # object i at shard position i
+        flips, seen = {}, set()
+        for oid in oids:
+            ps = osdmap.object_to_pg(pool_id, oid)
+            if ps in seen:
+                continue
+            seen.add(ps)
+            pos = len(flips)
+            _, acting, _ = osdmap.pg_to_up_acting(pool_id, ps)
+            off = int(rng.integers(0, OBJECT_BYTES // K - SCRUB_FLIP_BYTES))
+            cluster._stores[acting[pos]].inject_bit_flip(
+                pg_cid(pool_id, ps, pos), oid, offset=off,
+                length=SCRUB_FLIP_BYTES)
+            flips[oid] = pos
+            if len(flips) == K + M:
+                break
+
+        def deep_scrub():
+            return cluster.scrub_pool("scrub_ec", deep=True)
+
+        def deep_scrub_again():
+            return cluster.scrub_pool("scrub_ec", deep=True)
+
+        def shallow_scrub():
+            return cluster.scrub_pool("scrub_ec")
+
+        with _scrub_split() as split:
+            step("deep_scrub", timed(deep_scrub))
+        res = out["deep_scrub"]
+        check(res.get("deep") and "skipped" not in res,
+              f"deep scrub skipped PGs: {res.get('skipped')}")
+        check(res["inconsistent"] == {o: [p] for o, p in flips.items()},
+              f"convicted {res['inconsistent']}, flipped {flips}")
+        check(sorted(res["repaired"]) == sorted(flips),
+              f"repaired {res['repaired']}, flipped {sorted(flips)}")
+        step("deep_scrub_again", timed(deep_scrub_again))
+        check(out["deep_scrub_again"]["inconsistent"] == {} and
+              "skipped" not in out["deep_scrub_again"],
+              f"second deep scrub: {out['deep_scrub_again']}")
+        step("shallow_scrub", timed(shallow_scrub))
+        check(out["shallow_scrub"]["inconsistent"] == {} and
+              "skipped" not in out["shallow_scrub"],
+              f"shallow scrub after repair: {out['shallow_scrub']}")
+
+        def read_back():
+            def one(i):
+                check(io.read(oids[i]) == pays[oids[i]],
+                      f"read of {oids[i]} after repair")
+            return _threaded(one, n_obj, CLUSTER_CLIENTS)
+
+        step("read", read_back)
+        stats = [o.scrub_engine().stats for o in cluster.osds.values()]
+        engine_stats = {key: sum(st[key] for st in stats)
+                        for key in stats[0]}
+        check(engine_stats["device_errors"] == 0,
+              f"deep-scrub device errors: {engine_stats}")
+        batches = res["batches"]
+        if on_card:
+            for step_name in ("deep_scrub", "deep_scrub_again"):
+                got = launches[step_name]
+                check(got["gf_matvec"] >= batches and
+                      got["crc32c_rows"] >= batches,
+                      f"{step_name} launches {got} < {batches} batches")
+
+    # one gathered batch on the card against the plain version on the CPU
+    mat, k, batch, had_mismatch = split["batch"]
+    cpu_mism, cpu_lin = se.verify_batch(mat, k, batch, device="cpu")
+    card = {"objects": batch.shape[0], "had_mismatch": had_mismatch}
+    if on_card:
+        mism, lin = se.verify_batch(mat, k, batch, device=dev)
+        check(np.array_equal(mism, cpu_mism) and np.array_equal(lin, cpu_lin),
+              "verify of a gathered batch on the card differs from the CPU")
+        card["equal_to_plain"] = True
+        verify_device = verify_times(dev, mat, batch, hbm_rate()[0],
+                                     profiled=False)
+    else:
+        verify_device = "not measured (no card)"
+    calls = split["verify_calls_s"]
+    scrub_s = walls["deep_scrub"]
+    out_line = {
+        "phase": "scrub", "card": smi, "backend": backend,
+        "store": "blockstore",
+        "profile": "isa reed_sol_van k=8 m=3, stripe unit 4096",
+        "osds": CLUSTER_OSDS, "pg_num": CLUSTER_PG_NUM, "objects": n_obj,
+        "object_bytes": OBJECT_BYTES, "clients": CLUSTER_CLIENTS,
+        "boot_s": boot_s, "write_s": walls["write"],
+        "write_GBps": n_obj * OBJECT_BYTES / 1e9 / walls["write"],
+        "flips": flips, "convicted": res["inconsistent"],
+        "repaired": sorted(res["repaired"]),
+        "deep_scrub_s": scrub_s,
+        "deep_scrub_split_s": {key: split[key] for key in
+                               ("gather_s", "verify_s", "repair_s")},
+        "verify_batch_host_ms": {
+            "mean": 1e3 * sum(calls) / max(len(calls), 1),
+            "max": 1e3 * max(calls, default=0.0), "calls": len(calls)},
+        "verify_device": verify_device,
+        "bytes_verified": res["bytes_verified"],
+        "shard_GBps": res["bytes_verified"] / 1e9 / scrub_s,
+        "batches": batches, "objects_per_batch": res["objects"]
+        / max(batches, 1),
+        "deep_scrub_again_s": walls["deep_scrub_again"],
+        "shallow_scrub_s": walls["shallow_scrub"], "read_s": walls["read"],
+        "gathered_batch_check": card, "engine_stats": engine_stats,
+        "launches": launches}
+    emit(out_line)
+    return launches
 
 
 @contextlib.contextmanager
@@ -2176,12 +2462,27 @@ def main() -> int:
           "fused_flush_GBps": OBJECTS * OBJECT_BYTES / flush_s / 1e9,
           "fused_flush_peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
 
+    # -- 5 (scrub). the deep-scrub verify program at phase 5d's batch shape:
+    # a PG's 16 objects of 11 shards of 128 KiB, seeded bytes, their parity
+    # and one flip (timed here, with the other kernel times: phase 5d runs
+    # in a child that takes no profiler session, and runs last)
+    vdata = np.random.default_rng(SEED + 18).integers(
+        0, 256, (SCRUB_BATCH_OBJECTS, K, OBJECT_BYTES // K), dtype=np.uint8)
+    vbatch = np.concatenate(
+        [vdata, np.stack([gf256.gf_matvec_chunks(isa, d) for d in vdata])],
+        axis=1)
+    vbatch[0, 0, 0] ^= 1
+    del vdata
+    emit({"phase": "scrub_times", "card": smi,
+          "verify": verify_times(dev, isa, vbatch, hbm, profiled=True)})
+    del vbatch
+
     # -- 5b. the device engine ---------------------------------------------
     del results, streams
     engine_phase(dev, codec, sinfo, smi, flush_s)
 
     # -- 5c. the OSD chain: a MiniCluster pool on the card -----------------
-    cluster_launches = cluster_phase_in_child()
+    cluster_launches = phase_in_child(CLUSTER_CHILD_ARG, "cluster")["launches"]
 
     # -- 6-8. Clay -------------------------------------------------------
     clay = clay_phases(dev, hbm, smi)
@@ -2201,6 +2502,10 @@ def main() -> int:
     # -- 13. the engine under torch.profiler ------------------------------
     engine_profile_phase(dev, codec, sinfo)
 
+    # -- 5d. deep scrub over BlockStore on the card, last: profiler
+    # sessions in this process after its child came back empty (phase 8)
+    scrub_launches = phase_in_child(SCRUB_CHILD_ARG, "scrub")["launches"]
+
     # -- 9. summary --------------------------------------------------------
     emit({"kernels": [
         {"name": "gf_matvec (B1)", "route": "cuda",
@@ -2215,6 +2520,8 @@ def main() -> int:
          "device_ms": timings["encode"]["device_ms"],
          "cluster_launches": {step: n["gf_matvec"] for step, n
                               in cluster_launches.items()},
+         "scrub_launches": {step: n["gf_matvec"] for step, n
+                            in scrub_launches.items()},
          "decode": {label: {key: timings[label][key] for key in
                             ("ms", "device_ms", "bound_ms")}
                     for label in ("decode e=1", "decode e=2")}},
@@ -2229,7 +2536,9 @@ def main() -> int:
          "library_ms": None, "pass": True,
          "wrapper_ms": b2_wrapper_s * 1e3, "device_ms": b2_dev_ms,
          "cluster_launches": {step: n["crc32c_rows"] for step, n
-                              in cluster_launches.items()}},
+                              in cluster_launches.items()},
+         "scrub_launches": {step: n["crc32c_rows"] for step, n
+                            in scrub_launches.items()}},
     ] + clay + [
         {"name": "gf_xor (B6)", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/gf_xor.cu",
@@ -2244,5 +2553,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(cluster_child_main() if CLUSTER_CHILD_ARG in sys.argv[1:]
-                     else main())
+    if CLUSTER_CHILD_ARG in sys.argv[1:]:
+        raise SystemExit(child_main(cluster_phase))
+    if SCRUB_CHILD_ARG in sys.argv[1:]:
+        raise SystemExit(child_main(scrub_phase))
+    raise SystemExit(main())

@@ -10,8 +10,10 @@ matrix larger than B1 takes must take the counted dense route, and the
 Clay codec on CUDA must give the CPU codec's bytes. Kernel B6
 (ops/gf_xor_cuda.py) must equal its plain version over encode and decode
 matrices, ragged B and the largest matrix it takes, and the host oracle,
-and must refuse what it does not take. Every test here needs an NVIDIA GPU
-and skips without one.
+and must refuse what it does not take. The deep-scrub verify on the card
+(B1 + compare + B2) must equal its plain version, and a deep scrub of a
+``backend=cuda`` pool over BlockStore must convict and repair silent
+flips. Every test here needs an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -517,3 +519,65 @@ def test_cluster_on_cuda_write_degraded_read_revive(cuda):
     finally:
         for k, v in old.items():
             conf.set(k, v)
+
+
+@pytest.mark.parametrize("k,m,n_obj,l_b", [(2, 1, 3, 4096), (3, 2, 5, 8192),
+                                           (8, 3, 16, 128 << 10)])
+def test_scrub_verify_on_cuda_matches_plain(cuda, k, m, n_obj, l_b):
+    """The deep-scrub verify on the card (B1 re-encode, the compare, B2 +
+    stage 2) equals its plain version on the CPU: the mismatch bitmap and
+    the linear crcs, over clean objects and rot in data and parity
+    shards; one B1 and one B2 launch a batch."""
+    from ceph_tpu_torch.osd import scrub_engine
+    mat = gf256.rs_matrix_isa(k, m)
+    data = _bytes(k * 100 + n_obj, n_obj, k, l_b)
+    parity = np.stack([gf256.gf_matvec_chunks(mat, d) for d in data])
+    batch = np.concatenate([data, parity], axis=1)
+    batch[1, 0, 7] ^= 0x20                  # data rot: every parity row
+    batch[n_obj - 1, k + m - 1, l_b - 1] ^= 1   # parity rot: its row
+    gf_cuda.reset_launches()
+    crc32c_cuda.reset_launches()
+    mism, lin = scrub_engine.verify_batch(mat, k, batch, device=cuda)
+    assert (gf_cuda.launches, crc32c_cuda.launches) == (1, 1)
+    want_mism, want_lin = scrub_engine.verify_batch(mat, k, batch,
+                                                    device="cpu")
+    assert np.array_equal(mism, want_mism)
+    assert np.array_equal(lin, want_lin)
+    assert mism[1].all() and mism[n_obj - 1, m - 1]
+    assert not mism[0].any()
+
+
+def test_deep_scrub_on_cuda_blockstore(cuda, tmp_path):
+    """Deep scrub on the card over BlockStore: silent flips in a data and
+    a parity shard of a ``backend=cuda`` k=2,m=1 pool are convicted at
+    their positions through B1 + B2, repaired, and read back intact."""
+    from ceph_tpu_torch.osd.pg import pg_cid
+    from ceph_tpu_torch.qa.cluster import MiniCluster
+    with MiniCluster(n_osds=3, store="blockstore",
+                     data_dir=str(tmp_path)) as cluster:
+        cluster.create_ec_pool("cu", k=2, m=1, pg_num=4, backend="cuda")
+        io = cluster.client().open_ioctx("cu")
+        pays = {f"o{i}": _bytes(700 + i, (600 << 10) + i).tobytes()
+                for i in range(6)}
+        for oid, pay in pays.items():
+            io.write_full(oid, pay)
+        osdmap = cluster.mon.osdmap
+        pool_id = osdmap.pool_by_name["cu"]
+        flips = {"o1": 1, "o4": 2}
+        for oid, pos in flips.items():
+            ps = osdmap.object_to_pg(pool_id, oid)
+            _, acting, _ = osdmap.pg_to_up_acting(pool_id, ps)
+            cluster._stores[acting[pos]].inject_bit_flip(
+                pg_cid(pool_id, ps, pos), oid, offset=4096 + pos, length=8)
+        gf_cuda.reset_launches()
+        crc32c_cuda.reset_launches()
+        res = cluster.scrub_pool("cu", deep=True)
+        assert res["inconsistent"] == {o: [p] for o, p in flips.items()}, res
+        assert sorted(res["repaired"]) == sorted(flips), res
+        assert crc32c_cuda.launches >= res["batches"] > 0
+        assert gf_cuda.launches >= res["batches"]
+        assert cluster.scrub_pool("cu", deep=True)["inconsistent"] == {}
+        for oid, pay in pays.items():
+            assert io.read(oid) == pay
+        stats = [o.scrub_engine().stats for o in cluster.osds.values()]
+        assert sum(s["device_errors"] for s in stats) == 0, stats
