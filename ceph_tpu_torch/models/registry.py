@@ -8,10 +8,13 @@ A plugin is a module that must
 - expose ``__erasure_code_init__(name, registry)`` (entry-point lookup at
   :151) which must call ``registry.add(name, plugin)``.
 
-Built-in plugins resolve to ``ceph_tpu_torch.models.<name>`` (the
-reference's external plugin directories are not ported). The loader's
-failure modes (unknown plugin, missing entry point, version mismatch, init
-failure, init-forgets-to-register) raise :class:`PluginLoadError`.
+Built-in plugins resolve to ``ceph_tpu_torch.models.<name>``; external
+plugin directories (the reference's ``erasure_code_dir``) are searched for
+``ec_<name>.py`` files loaded through importlib. The loader's failure modes
+(unknown plugin or missing file, missing entry point, version mismatch,
+init failure, init-forgets-to-register) raise :class:`PluginLoadError`.
+:meth:`ErasureCodePluginRegistry.preload` loads the plugins named by
+``osd_erasure_code_plugins`` at daemon start.
 
 ``factory`` takes the torch ``device`` the codec's matvec runs on.
 """
@@ -19,8 +22,10 @@ failure, init-forgets-to-register) raise :class:`PluginLoadError`.
 from __future__ import annotations
 
 import importlib
+import importlib.util
 import threading
 from abc import ABC, abstractmethod
+from pathlib import Path
 
 from ceph_tpu_torch.models.interface import (
     ErasureCodeError,
@@ -78,12 +83,18 @@ class ErasureCodePluginRegistry:
                                       errno_=17)
             self._plugins[name] = plugin
 
-    def load(self, name: str) -> ErasureCodePlugin:
-        """Load plugin ``name``; mirrors ErasureCodePlugin.cc:126-184."""
+    def get(self, name: str) -> ErasureCodePlugin | None:
+        with self._lock:
+            return self._plugins.get(name)
+
+    def load(self, name: str, directory: str | None = None
+             ) -> ErasureCodePlugin:
+        """Load plugin ``name``, from ``directory``'s ``ec_<name>.py`` when
+        given; mirrors ErasureCodePlugin.cc:126-184."""
         with self._lock:
             if name in self._plugins:
                 return self._plugins[name]
-            module = self._import_plugin_module(name)
+            module = self._import_plugin_module(name, directory)
             version = getattr(module, "__erasure_code_version__", None)
             if version is None:
                 raise PluginLoadError(
@@ -110,7 +121,21 @@ class ErasureCodePluginRegistry:
             return self._plugins[name]
 
     @staticmethod
-    def _import_plugin_module(name: str):
+    def _import_plugin_module(name: str, directory: str | None = None):
+        if directory:
+            path = Path(directory) / f"ec_{name}.py"
+            if not path.exists():
+                raise PluginLoadError(
+                    f"no plugin file {path} for {name!r}", errno_=2)
+            spec = importlib.util.spec_from_file_location(
+                f"ceph_tpu_torch_ext_plugin_{name}", path)
+            module = importlib.util.module_from_spec(spec)
+            try:
+                spec.loader.exec_module(module)
+            except Exception as exc:
+                raise PluginLoadError(
+                    f"plugin file {path} failed to import: {exc!r}") from exc
+            return module
         modname = _BUILTIN_MODULES.get(name)
         if modname is None:
             raise PluginLoadError(f"unknown plugin {name!r}", errno_=2)
@@ -121,11 +146,24 @@ class ErasureCodePluginRegistry:
                 f"plugin module {modname} failed to import: {exc!r}") from exc
 
     def factory(self, plugin_name: str, profile: dict,
-                device="cuda") -> ErasureCodeInterface:
+                device="cuda", directory: str | None = None
+                ) -> ErasureCodeInterface:
         """Resolve plugin, instantiate codec on ``device``, init with
         profile (reference: ErasureCodePlugin.cc:92-120)."""
-        plugin = self.load(plugin_name)
+        plugin = self.load(plugin_name, directory)
         return plugin.factory(dict(profile), device)
+
+    def preload(self, names: list[str] | None = None,
+                directory: str | None = None) -> None:
+        """Preload plugins at daemon start (reference: config
+        osd_erasure_code_plugins, ErasureCodePlugin.cc:186-202).
+        ``names`` defaults to the ``osd_erasure_code_plugins``
+        option, whitespace-separated as in the reference."""
+        if names is None:
+            from ceph_tpu_torch.utils.config import g_conf
+            names = g_conf()["osd_erasure_code_plugins"].split()
+        for name in names:
+            self.load(name, directory)
 
 
 def instance() -> ErasureCodePluginRegistry:

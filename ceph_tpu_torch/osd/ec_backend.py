@@ -111,25 +111,33 @@ HOST_BACKEND = "numpy"
 EIO = -5
 
 
-def resolve_auto_device() -> str:
-    """``auto_device`` is the card. Without one it raises: the device
-    path never runs on the CPU without being asked to."""
+def _require_card(name: str) -> None:
     import torch
     if not torch.cuda.is_available():
         raise ErasureCodeError(
-            "backend auto_device: no CUDA device (backend=torch runs the "
+            f"backend {name}: no CUDA device (backend=torch runs the "
             "plain versions on the CPU)")
+
+
+def resolve_auto_device() -> str:
+    """``auto_device`` is the card. Without one it raises: the device
+    path never runs on the CPU without being asked to."""
+    _require_card("auto_device")
     return "cuda"
 
 
 def profile_device(profile: dict) -> str:
     """The torch device a profile's codec lives on: the card for
-    ``cuda`` and ``auto_device`` (which raises without one), the CPU for
+    ``cuda`` and ``auto_device`` (each raises without one, so the mon
+    refuses such a profile on a machine with no card), the CPU for
     ``torch`` (the plain versions) and every host backend."""
     want = profile.get("backend")
     if want == "auto_device":
         want = resolve_auto_device()
-    return "cuda" if want == "cuda" else "cpu"
+    if want == "cuda":
+        _require_card("cuda")
+        return "cuda"
+    return "cpu"
 
 
 class ECBackend(PGBackend):
@@ -1519,7 +1527,16 @@ class ECBackend(PGBackend):
         object on EVERY up shard at the newest version that does (same
         version label as the dead write, so the push guard accepts it
         everywhere and peering sees a consistent object), or remove the
-        partial chunks entirely if no version ever reached k."""
+        partial chunks entirely if no version ever reached k.
+
+        The caller asks only after two recovery rounds failed. If a
+        version >= wanted does have k chunks, the normal path can rebuild
+        the object, and returns None as the reference does; but first the
+        ``pg.peer_missing`` entries of positions the probe found holding a
+        version >= wanted are dropped: stale, they are what made the
+        recovery read, which avoids listed positions, see fewer than k
+        (the reference keeps them, and its recovery retries forever,
+        ROADMAP §C). Nothing is written for them."""
         positions = self.up_positions(pg)
         if len(positions) < len(pg.acting) or \
                 any(o < 0 for o in pg.acting):
@@ -1552,6 +1569,17 @@ class ECBackend(PGBackend):
             attrs_by_pos[pos] = dict(rep.attrs)
         usable = [v for v, poss in vers.items() if len(poss) >= self.k]
         if usable and max(usable) >= wanted:
+            holding = {pos for v, poss in vers.items() if v >= wanted
+                       for pos in poss}
+            with pg.lock:
+                for pos in holding:
+                    missing = pg.peer_missing.get(pos)
+                    if missing and missing.get(oid, wanted + 1) <= wanted:
+                        del missing[oid]
+                        log(1, f"{pg}: {oid} is at v>={wanted} on pos "
+                            f"{pos}; dropped its stale missing entry")
+                        if not missing:
+                            del pg.peer_missing[pos]
             return None          # reconstructible: normal path handles
         # label every rewrite with the highest version any shard holds,
         # so the push guard accepts it on the ahead shards too

@@ -3320,10 +3320,8 @@ class OSD:
         reference daemon's periodic rotating-secrets refresh). A
         denial means WE were revoked: keep running — once the cached
         window ages out, peers refuse our frames (the fence)."""
-        provider = getattr(self.msgr, "rotating_provider", None)
-        if provider is None:
-            return    # auth=none (cephx, parallel/auth, is not ported)
         from ceph_tpu_torch.parallel import auth as A
+        provider = getattr(self.msgr, "rotating_provider", None)
         if not isinstance(provider, A.FetchedKeyProvider) or \
                 not provider.needs_refresh():
             return

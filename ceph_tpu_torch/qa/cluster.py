@@ -5,8 +5,9 @@ store) in one Python process, the way qa/standalone tests boot many
 ceph-osd processes on one host. Helpers mirror ceph-helpers.sh:
 ``create_ec_pool``, ``kill_osd``/``revive_osd``, ``wait_for_clean``.
 
-The port boots the threaded OSD without auth; the crimson flavour and
-cephx are not ported yet (ROADMAP A.3).
+The port boots both OSD flavours (threaded and crimson) and cephx; the
+mgr boots with the modules the port has (``mgr/mgr.py``
+``PORTED_MODULES``) and raises for the others (ROADMAP A.6).
 """
 
 from __future__ import annotations
@@ -32,14 +33,13 @@ class MiniCluster:
                  n_mons: int = 1,
                  osd_flavor: str = "threaded") -> None:
         assert osd_flavor in ("threaded", "crimson"), osd_flavor
-        if osd_flavor == "crimson":
-            raise NotImplementedError(
-                "crimson OSD flavour not ported (ROADMAP A.3)")
         self.n_osds = n_osds
         self.n_mons = n_mons
         self.store_kind = store
         self.data_dir = data_dir
-        #: "threaded" boots the mainline OSD
+        #: "threaded" boots the mainline OSD; "crimson" boots the
+        #: shard-per-core run-to-completion OSD (same wire protocol —
+        #: every helper/client below works unchanged)
         self.osd_flavor = osd_flavor
         self.mons: dict[int, Monitor] = {}
         self._mon_dbs: dict[int, object] = {}
@@ -49,8 +49,10 @@ class MiniCluster:
         self._clients: list[RadosClient] = []
         self.keyring = None
         if auth:
-            raise NotImplementedError(
-                "cephx (parallel/auth) not ported (ROADMAP A.3)")
+            from ceph_tpu_torch.parallel import auth as A
+            self.keyring = A.Keyring()
+            self.keyring.generate(A.SERVICE_ENTITY)
+            self.keyring.generate("client.admin")
 
     MON_NAMES = "abcdefgh"
 
@@ -87,6 +89,22 @@ class MiniCluster:
         return create_store(self.store_kind, path)
 
     def start_osd(self, osd_id: int) -> OSD:
+        if self.osd_flavor == "crimson":
+            # crimson manages its own per-reactor shard stores (the
+            # shared-nothing discipline: one store per reactor); a
+            # revive hands the killed OSD's shard stores back so its
+            # data survives, mirroring the threaded store cache
+            from ceph_tpu_torch.crimson import CrimsonOSD
+            cached = self._stores.get(osd_id)
+            osd = CrimsonOSD(osd_id, self.mon_addr,
+                             store_kind=self.store_kind,
+                             data_dir=self.data_dir,
+                             shard_stores=cached if
+                             isinstance(cached, list) else None)
+            osd.start()
+            self._stores[osd_id] = [r.store for r in osd.reactors]
+            self.osds[osd_id] = osd
+            return osd
         store = self._stores.get(osd_id) or self._make_store(osd_id)
         self._stores[osd_id] = store
         osd = OSD(osd_id, store, self.mon_addr, keyring=self.keyring)
@@ -95,9 +113,19 @@ class MiniCluster:
         return osd
 
     def start_mgr(self, name: str = "x", modules=None):
-        """Boot a Mgr daemon (run_mgr role of
-        qa/standalone/ceph-helpers.sh): the mgr is not ported yet."""
-        raise NotImplementedError("mgr not ported (ROADMAP A.6)")
+        """Boot a Mgr daemon against this cluster's mons (run_mgr role
+        of qa/standalone/ceph-helpers.sh). Raises NotImplementedError
+        naming the modules asked for that the port does not have (the
+        default set among them)."""
+        from ceph_tpu_torch.mgr import Mgr
+        auth = None
+        if self.keyring is not None:
+            auth = ("client.admin", self.keyring.get("client.admin"))
+        kw = {"auth": auth}
+        if modules is not None:
+            kw["modules"] = tuple(modules)
+        self.mgr = Mgr(self.mon_addr, name=name, **kw).start()
+        return self.mgr
 
     def stop(self) -> None:
         if getattr(self, "mgr", None) is not None:

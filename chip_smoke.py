@@ -95,8 +95,8 @@ Phases, each printing one JSON line:
    depth, each kernel's launches by step, and the card's name and power
    limit. Kernel launch counts are zeroed before and read after each
    step. The phase runs in a child process on the same card (this script
-   with ``--cluster-phase``), so the cluster's threads stay out of the
-   later phases' profiler sessions;
+   with ``--cluster-phase``), so the cluster's threads stay out of this
+   process's profiler sessions, after phase 13 with 5e, 5f and 5d;
 5d. scrub: deep scrub on the card over the durable store, 5c's
    deployment on BlockStore (the BlueStore role; its data files in a
    temporary directory under ``build/scrub/``): 12 OSDs, the ISA k=8,m=3
@@ -123,11 +123,43 @@ Phases, each printing one JSON line:
    second, batches and objects a batch, and B1 and B2 launches by step
    (counts zeroed before and read after each step). It runs in a child
    process like 5c (``--scrub-phase``), which takes no profiler session,
-   and it runs last, after phase 13: profiler sessions in this process
-   after its child have come back empty. The ``scrub_times`` line, in
+   and it runs last. The cluster children (5c, 5e, 5f, 5d) run after
+   phase 13: profiler sessions in this process after a cluster child
+   have come back empty (phase 8). The ``scrub_times`` line, in
    phase 5, gives the verify program's events and profiler device ms at
    5d's batch shape (16 objects of 11 shards of 128 KiB: seeded bytes,
    their parity and one flip) beside its bound;
+5e. crimson: 5c's deployment on crimson OSDs (``osd_flavor="crimson"``,
+   3 reactors an OSD, each with its own memstore; the mainline
+   ``ECBackend`` and the shared engine on every reactor): 512 objects of
+   1 MiB (from the seed) written from 8 client threads and read back; 16
+   objects' shards read from the reactor stores against the host oracles;
+   OSD 3 killed (the heartbeat knobs tightened until it is marked down),
+   the 512 read back degraded, OSD 3 revived with its shard stores
+   (crimson has no recovery) and the 512 read again. Checked: every read
+   equals its payload, B1 and B2 launched on the writes (B2 once a fused
+   flush), the degraded reads reconstructed on the host twin
+   (``ec_util.decode``, the reference's route for a reactor: no engine
+   decode, no B1 launch), no engine errors. The ``crimson`` line prints
+   the walls and GB/s, flushes and ops a flush, window depth, launches
+   and dispatch telemetry (hops a client op by seam, wakeups a reply
+   frame) by step and the writes' host split; the ``crimson_vs_threaded``
+   line puts them beside 5c's. Runs in a child process
+   (``--crimson-phase``);
+5f. serving: a threaded 12-OSD ``MiniCluster`` under cephx (``auth=True``:
+   tickets from the mon, every frame signed) with 5c's pool, driven by the
+   degraded-serving load generator (``bench/load_gen.py``): 512 keys of
+   1 MiB preloaded, then a zipfian (theta 0.99) half-read load from 8
+   closed-loop clients through the ladder healthy -> kill OSD 11 ->
+   degraded -> revive -> recovering -> ``wait_for_clean`` -> recovered,
+   8 s a phase, every read verified against its self-describing payload,
+   and a final durability sweep. Checked: the four phases each served
+   ops, no acked write lost, no wrong byte, no corruption, the clean wait
+   returned, B1 and B2 launched in the healthy phase. The ``serving`` line
+   prints each phase's ops, MB/s, p50 and p99, error census, health brief
+   and launches, the QoS verdict beside its bar (printed, not gated), and
+   cephx's share of the host's busy samples. Runs in a child process
+   (``--serving-phase``);
 6. Clay kernels against their plain versions on the card, byte-exact: B3
    and B4 over k=8,m=4,d=11, k=4,m=2 and k=4,m=3,d=6 (virtual nodes) at
    ragged L (B3 also at 64 and 32 Ki lanes, its short form; B3 and B4 from
@@ -204,6 +236,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import json
+import linecache
 import os
 import queue
 import statistics
@@ -776,6 +809,16 @@ _IDLE_LEAVES = frozenset(("wait", "acquire", "get", "select", "poll",
 #: the inclusive counts name the port's own functions only
 _PORT_DIR = "/ceph_tpu_torch/"
 
+#: text of a leaf frame's current line that blocks inside a C call, which
+#: leaves no Python frame of its own (a renewal loop's ``time.sleep``, an
+#: executor worker's queue wait): its samples count as idle
+_IDLE_CALLS = ("time.sleep(", "work_queue.get(")
+
+
+def _blocked_in_c(frame) -> bool:
+    line = linecache.getline(frame.f_code.co_filename, frame.f_lineno)
+    return any(call in line for call in _IDLE_CALLS)
+
 
 class StackSampler:
     """The host split of a step: a thread that reads every other
@@ -784,8 +827,10 @@ class StackSampler:
     name without its index), the leaf function and each function on the
     stack. Shares are of busy samples; a busy sample is a thread that was
     running Python or inside a call that had not returned (a numpy or
-    torch kernel, a copy, or a wait for the GIL). Inclusive counts name
-    the port's functions only."""
+    torch kernel, a copy, or a wait for the GIL), but not a thread whose
+    line blocks in a C call (``_IDLE_CALLS``). Inclusive counts name
+    the port's functions only; the per-file counts count a sample once
+    for each port file on its stack."""
 
     def __init__(self, interval: float = 0.005) -> None:
         self.interval = interval
@@ -795,6 +840,7 @@ class StackSampler:
         self.groups: dict = {}
         self.leaves: dict = {}
         self.inclusive: dict = {}
+        self.files: dict = {}
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="stack-sampler")
@@ -817,7 +863,8 @@ class StackSampler:
             for tid, frame in sys._current_frames().items():
                 if tid == me:
                     continue
-                if frame.f_code.co_name in _IDLE_LEAVES:
+                if frame.f_code.co_name in _IDLE_LEAVES or \
+                        _blocked_in_c(frame):
                     self.idle += 1
                     continue
                 self.busy += 1
@@ -826,7 +873,7 @@ class StackSampler:
                 self.groups[group] = self.groups.get(group, 0) + 1
                 leaf = _frame_name(frame)
                 self.leaves[leaf] = self.leaves.get(leaf, 0) + 1
-                seen = set()
+                seen, files = set(), set()
                 while frame is not None:
                     name = _frame_name(frame)
                     if name not in seen and \
@@ -834,7 +881,10 @@ class StackSampler:
                         seen.add(name)
                         self.inclusive[name] = \
                             self.inclusive.get(name, 0) + 1
+                        files.add(name.rsplit(":", 1)[0])
                     frame = frame.f_back
+                for f in files:
+                    self.files[f] = self.files.get(f, 0) + 1
 
     def report(self, top: int = 12) -> dict:
         def shares(counts):
@@ -846,7 +896,13 @@ class StackSampler:
                 "busy_threads_mean": self.busy / max(self.ticks, 1),
                 "thread_groups": shares(self.groups),
                 "leaf": shares(self.leaves),
-                "inclusive": shares(self.inclusive)}
+                "inclusive": shares(self.inclusive),
+                "files": shares(self.files)}
+
+    def file_share(self, path: str) -> float:
+        """Share of busy samples with a function of the port file
+        ``path`` (``dir/name.py``) on the stack."""
+        return self.files.get(path, 0) / max(self.busy, 1)
 
 
 def _frame_name(frame) -> str:
@@ -894,6 +950,30 @@ def _heartbeat_knobs(conf, knobs: dict):
             conf.set(key, val)
 
 
+def _store_with(stores, cid: str):
+    """The store holding collection ``cid``: an OSD's store, or the one
+    of a crimson OSD's per-reactor stores that owns the PG."""
+    if not isinstance(stores, list):
+        return stores
+    return next(st for st in stores if cid in st.list_collections())
+
+
+def _dispatch_brief() -> dict:
+    """Cross-thread hops a completed client op crossed (mean, and each
+    seam's count) and client threads woken a reply frame, from the port's
+    dispatch telemetry since its last reset."""
+    from ceph_tpu_torch.utils.dispatch_telemetry import SEAMS, telemetry
+    tel = telemetry()
+    c = tel.perf.dump()
+    chains = c["op_chains"]
+    return {"op_chains": chains,
+            "dispatch_hops_per_op": sum(c[f"ophop_{s}"] for s in SEAMS)
+            / chains if chains else None,
+            "hops_by_seam": {s: c[f"ophop_{s}"] for s in SEAMS
+                             if c[f"ophop_{s}"]},
+            "wakeups_per_frame": tel.wakeup_table()["wakeups_per_frame"]}
+
+
 def _check_cluster_shards(cluster, pool_id: int, oids, pays, codec) -> int:
     """Every shard of ``oids`` read straight from its OSD's store: the data
     shards against the object's bytes, the parity against the host GF
@@ -910,8 +990,8 @@ def _check_cluster_shards(cluster, pool_id: int, oids, pays, codec) -> int:
         _, acting, _ = osdmap.pg_to_up_acting(pool_id, ps)
         shards, hinfo = {}, None
         for pos, osd in enumerate(acting):
-            store = cluster._stores[osd]
             cid = pg_cid(pool_id, ps, pos)
+            store = _store_with(cluster._stores[osd], cid)
             shards[pos] = np.frombuffer(store.read(cid, oid), np.uint8)
             attrs = store.getattrs(cid, oid)
             h = json.loads(attrs["hinfo"])
@@ -949,6 +1029,8 @@ def cluster_phase(smi: str, backend: str = "cuda",
     from ceph_tpu_torch.osd.osd import ENOENT
     from ceph_tpu_torch.qa.cluster import MiniCluster
     from ceph_tpu_torch.utils.config import g_conf
+    from ceph_tpu_torch.utils.dispatch_telemetry import \
+        telemetry as dispatch_telemetry
 
     on_card = backend == "cuda"
     rng = np.random.default_rng(SEED + 13)
@@ -977,14 +1059,17 @@ def cluster_phase(smi: str, backend: str = "cuda",
         return _threaded(one, len(names), CLUSTER_CLIENTS)
 
     host_split: dict = {}
+    dispatch: dict = {}
 
     def step(label, fn, sampled: bool = False):
         reset()
+        dispatch_telemetry().reset()
         with StackSampler() if sampled else contextlib.nullcontext() \
                 as sampler:
             walls[label] = fn()
         launches[label] = {"gf_matvec": gf_cuda.launches,
                            "crc32c_rows": crc32c_cuda.launches}
+        dispatch[label] = _dispatch_brief()
         if sampled:
             host_split[label] = sampler.report()
 
@@ -1147,15 +1232,366 @@ def cluster_phase(smi: str, backend: str = "cuda",
            "decode_flushes": final["decode_flushes"],
            "decode_ops": final["decode_ops"],
            "shards_checked": shards_checked, "launches": launches,
-           "stats": final, "host_split": host_split}
+           "dispatch": dispatch, "stats": final, "host_split": host_split}
     emit(out)
     return launches
 
 
-#: the arguments that run phase 5c and phase 5d alone (each the child
+def _engine_handle(cluster):
+    """The shared engine's handle of any OSD attached to it (a threaded
+    OSD's, or a crimson reactor's)."""
+    for osd in cluster.osds.values():
+        handle = getattr(osd, "_device_engine", None)
+        if handle is not None:
+            return handle
+        for reactor in getattr(osd, "reactors", ()):
+            if reactor.services._engine is not None:
+                return reactor.services._engine
+    raise AssertionError("no OSD attached to the device engine")
+
+
+@contextlib.contextmanager
+def _fast_death_kill(cluster, conf):
+    """Tighten the heartbeat knobs (``FAST_DEATH``) from an OSD's kill
+    until the mon marks it down, as phase 5c does around its kill, for a
+    load that kills inside its own run (the load generator): the
+    cluster's ``kill_osd`` sets them and ``wait_for_osd_down`` restores
+    them."""
+    kill, wait_down = cluster.kill_osd, cluster.wait_for_osd_down
+    old = {k: conf[k] for k in FAST_DEATH}
+
+    def restore():
+        for key, val in old.items():
+            conf.set(key, val)
+
+    def kill_fast(osd_id):
+        for key, val in FAST_DEATH.items():
+            conf.set(key, val)
+        kill(osd_id)
+
+    def wait_down_then_restore(osd_id, timeout=30.0):
+        try:
+            wait_down(osd_id, timeout=max(timeout, 60))
+        finally:
+            restore()
+
+    cluster.kill_osd = kill_fast
+    cluster.wait_for_osd_down = wait_down_then_restore
+    try:
+        yield
+    finally:
+        cluster.kill_osd, cluster.wait_for_osd_down = kill, wait_down
+        restore()
+
+
+#: the OSD phase 5e kills (crimson has no recovery: it is revived and
+#: read again)
+CRIMSON_KILLED = CLUSTER_KILLED[0]
+
+
+def crimson_vs_threaded(crimson: dict, threaded: dict, smi: str) -> dict:
+    """Phase 5e's steps beside phase 5c's (the same 12-OSD pool, 512 x 1
+    MiB from 8 clients; 5c kills two OSDs, 5e one): walls and GB/s,
+    flushes and ops a flush, window depth, and the dispatch telemetry's
+    hops a client op and wakeups a reply frame."""
+    def side(line):
+        return {
+            "osd_flavor": line.get("osd_flavor", "threaded"),
+            **{key: line[key] for key in
+               ("write_s", "write_GBps", "read_s", "read_GBps",
+                "degraded_read_s", "degraded_read_GBps", "write_flushes",
+                "write_ops_per_flush", "window_depth_max")},
+            "killed": line["killed"],
+            "dispatch": {step: {key: d[key] for key in
+                                ("dispatch_hops_per_op", "hops_by_seam",
+                                 "wakeups_per_frame")}
+                         for step, d in line["dispatch"].items()
+                         if step in ("write", "read", "degraded_read")},
+            "write_thread_groups":
+                line["host_split"]["write"]["thread_groups"][:6]}
+    return {"phase": "crimson_vs_threaded", "card": smi,
+            "crimson": side(crimson), "threaded": side(threaded)}
+
+
+def crimson_phase(smi: str, backend: str = "cuda",
+                  n_obj: int = CLUSTER_OBJECTS) -> dict:
+    """Phase 5e: phase 5c's deployment on crimson OSDs (see the module
+    docstring). Returns the B1/B2 launch counts of each step;
+    ``backend="torch"`` runs the plain versions (a rehearsal on the CPU,
+    where no launch is counted)."""
+    from ceph_tpu_torch.models import instance
+    from ceph_tpu_torch.ops import crc32c_cuda, gf_cuda
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.qa.cluster import MiniCluster
+    from ceph_tpu_torch.utils.config import g_conf
+    from ceph_tpu_torch.utils.dispatch_telemetry import \
+        telemetry as dispatch_telemetry
+
+    on_card = backend == "cuda"
+    rng = np.random.default_rng(SEED + 14)
+    data = rng.integers(0, 256, n_obj * OBJECT_BYTES, dtype=np.uint8)
+    pays = {f"obj{i}": data[i * OBJECT_BYTES:(i + 1) * OBJECT_BYTES]
+            .tobytes() for i in range(n_obj)}
+    del data
+    oids = list(pays)
+    host_codec = instance().factory(
+        "isa", {"k": str(K), "m": str(M), "technique": "reed_sol_van",
+                "backend": "numpy"}, device="cpu")
+    launches: dict = {}
+    walls: dict = {}
+    dispatch: dict = {}
+    host_split: dict = {}
+    decodes: list = []
+    real_decode = ec_util.decode
+
+    def counted_decode(*args, **kwargs):
+        decodes.append(1)
+        return real_decode(*args, **kwargs)
+
+    def step(label, fn, sampled: bool = False):
+        gf_cuda.reset_launches()
+        crc32c_cuda.reset_launches()
+        dispatch_telemetry().reset()
+        with StackSampler() if sampled else contextlib.nullcontext() \
+                as sampler:
+            walls[label] = fn()
+        launches[label] = {"gf_matvec": gf_cuda.launches,
+                           "crc32c_rows": crc32c_cuda.launches}
+        dispatch[label] = _dispatch_brief()
+        if sampled:
+            host_split[label] = sampler.report()
+
+    def read_back(label):
+        def one(i):
+            check(io.read(oids[i]) == pays[oids[i]],
+                  f"crimson {label} read of {oids[i]}")
+        return _threaded(one, n_obj, CLUSTER_CLIENTS)
+
+    t_boot = time.perf_counter()
+    with _heartbeat_knobs(g_conf(), CLUSTER_GRACE), \
+            MiniCluster(n_osds=CLUSTER_OSDS, osd_flavor="crimson") as cluster:
+        boot_s = time.perf_counter() - t_boot
+        smp = cluster.osds[0].smp
+        cluster.create_ec_pool("rbd_ec", k=K, m=M, plugin="isa",
+                               technique="reed_sol_van",
+                               pg_num=CLUSTER_PG_NUM, backend=backend)
+        pool_id = cluster.mon.osdmap.pool_by_name["rbd_ec"]
+        rados = cluster.client()
+        io = rados.open_ioctx("rbd_ec")
+        io.op_timeout = 600.0
+
+        def write_all():
+            return _threaded(lambda i: io.write_full(oids[i], pays[oids[i]]),
+                             n_obj, CLUSTER_CLIENTS)
+
+        step("write", write_all, sampled=True)
+        handle = _engine_handle(cluster)
+        write_stats = dict(handle.stats)
+        check(write_stats["ops"] >= n_obj,
+              f"engine ops {write_stats['ops']} < {n_obj}")
+        check(write_stats["errors"] == 0, f"engine errors: {write_stats}")
+        fused = write_stats["flushes"] - write_stats["host_flushes"]
+        if on_card:
+            w = launches["write"]
+            check(w["gf_matvec"] > 0 and w["crc32c_rows"] > 0,
+                  f"crimson write launches {w}")
+            check(w["crc32c_rows"] == fused,
+                  f"B2 launches {w['crc32c_rows']} != fused flushes {fused}")
+        step("read", lambda: read_back("clean"), sampled=True)
+        osdmap = cluster.mon.osdmap
+        picked, seen = [], set()
+        for oid in oids:
+            ps = osdmap.object_to_pg(pool_id, oid)
+            if ps not in seen:
+                seen.add(ps)
+                picked.append(oid)
+            if len(picked) == CLUSTER_CHECKED:
+                break
+        shards_checked = _check_cluster_shards(cluster, pool_id, picked,
+                                               pays, host_codec)
+        lost_data = sum(
+            1 for ps in range(CLUSTER_PG_NUM)
+            if CRIMSON_KILLED in osdmap.pg_to_up_acting(pool_id, ps)[1][:K])
+
+        # -- one OSD killed: degraded reads on the host twin ------------
+        epoch = cluster.epoch()
+        t0 = time.perf_counter()
+        with _heartbeat_knobs(g_conf(), FAST_DEATH):
+            cluster.kill_osd(CRIMSON_KILLED)
+            cluster.wait_for_osd_down(CRIMSON_KILLED, timeout=60)
+        down_s = time.perf_counter() - t0
+        rados.wait_for_epoch(epoch + 1, timeout=30)
+        before = dict(handle.stats)
+        ec_util.decode = counted_decode
+        try:
+            step("degraded_read", lambda: read_back("degraded"),
+                 sampled=True)
+        finally:
+            ec_util.decode = real_decode
+        after = dict(handle.stats)
+        host_decodes = len(decodes)
+        check(host_decodes > 0, "no degraded read reconstructed")
+        check(after["decode_ops"] == before["decode_ops"],
+              f"crimson decoded through the engine: {after}")
+        if on_card:
+            check(launches["degraded_read"]["gf_matvec"] == 0,
+                  f"B1 launched on crimson's degraded reads (the host "
+                  f"twin's route): {launches['degraded_read']}")
+
+        # -- revived: the killed OSD's shard stores come back -------------
+        def revive():
+            t0 = time.perf_counter()
+            cluster.revive_osd(CRIMSON_KILLED)
+            cluster.wait_for_osds_up(timeout=60)
+            return time.perf_counter() - t0
+
+        step("revive", revive)
+        step("revived_read", lambda: read_back("revived"))
+        final = dict(handle.stats)
+        check(final["errors"] == 0 and final["decode_errors"] == 0,
+              f"engine errors: {final}")
+
+    gb = n_obj * OBJECT_BYTES / 1e9
+    flushes = write_stats["flushes"]
+    out = {"phase": "crimson", "card": smi, "backend": backend,
+           "profile": "isa reed_sol_van k=8 m=3, stripe unit 4096",
+           "osds": CLUSTER_OSDS, "osd_flavor": "crimson", "smp": smp,
+           "pg_num": CLUSTER_PG_NUM, "objects": n_obj,
+           "object_bytes": OBJECT_BYTES, "clients": CLUSTER_CLIENTS,
+           "killed": CRIMSON_KILLED,
+           "heartbeat": {**CLUSTER_GRACE, "while_killing": FAST_DEATH},
+           "boot_s": boot_s,
+           "write_s": walls["write"], "write_GBps": gb / walls["write"],
+           "read_s": walls["read"], "read_GBps": gb / walls["read"],
+           "down_s": down_s, "pgs_lost_a_data_shard": lost_data,
+           "degraded_read_s": walls["degraded_read"],
+           "degraded_read_GBps": gb / walls["degraded_read"],
+           "degraded_read_route": "host twin (ec_util.decode on the "
+           "host codec, the reference's route: no B1)",
+           "degraded_host_decodes": host_decodes,
+           "revive_s": walls["revive"],
+           "revived_read_s": walls["revived_read"],
+           "revived_read_GBps": gb / walls["revived_read"],
+           "write_flushes": flushes,
+           "write_host_flushes": write_stats["host_flushes"],
+           "write_ops_per_flush": write_stats["ops"] / max(flushes, 1),
+           "max_batch_ops": write_stats["max_batch_ops"],
+           "window_depth_max": final["max_inflight_depth"],
+           "shards_checked": shards_checked, "launches": launches,
+           "dispatch": dispatch, "stats": final, "host_split": host_split}
+    emit(out)
+    return out
+
+
+#: phase 5f's load: the reference load generator's degraded-serving
+#: ladder at 5c's object size and client count
+SERVING_KEYS = 512
+SERVING_PHASE_S = 8.0
+SERVING_READ_FRAC = 0.5
+SERVING_THETA = 0.99
+
+
+def serving_phase(smi: str, backend: str = "cuda",
+                  n_keys: int = SERVING_KEYS,
+                  phase_s: float = SERVING_PHASE_S) -> dict:
+    """Phase 5f: degraded serving under cephx (see the module docstring).
+    Returns the load generator's report with the B1/B2 launches of each
+    ladder phase; ``backend="torch"`` runs the plain versions (a
+    rehearsal on the CPU, where no launch is counted)."""
+    from ceph_tpu_torch.bench.load_gen import LoadGen, LoadSpec
+    from ceph_tpu_torch.ops import crc32c_cuda, gf_cuda
+    from ceph_tpu_torch.qa.cluster import MiniCluster
+    from ceph_tpu_torch.utils.config import g_conf
+
+    on_card = backend == "cuda"
+    launches: dict = {}
+    t_boot = time.perf_counter()
+    with _heartbeat_knobs(g_conf(), CLUSTER_GRACE), \
+            MiniCluster(n_osds=CLUSTER_OSDS, auth=True) as cluster:
+        boot_s = time.perf_counter() - t_boot
+        check(cluster.keyring is not None, "cluster booted without cephx")
+        cluster.faults.reseed(SEED)
+        cluster.create_ec_pool("rbd_ec", k=K, m=M, plugin="isa",
+                               technique="reed_sol_van",
+                               pg_num=CLUSTER_PG_NUM, backend=backend)
+        spec = LoadSpec(n_keys=n_keys, obj_size=OBJECT_BYTES,
+                        read_frac=SERVING_READ_FRAC,
+                        concurrency=CLUSTER_CLIENTS, phase_seconds=phase_s,
+                        seed=SEED, zipf_theta=SERVING_THETA,
+                        op_timeout=600.0)
+        gen = LoadGen(cluster, "rbd_ec", spec)
+        real_preload, real_phase = gen.preload, gen._run_phase
+
+        def counted(label, fn, *args, **kwargs):
+            gf_cuda.reset_launches()
+            crc32c_cuda.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                launches[label] = {"gf_matvec": gf_cuda.launches,
+                                   "crc32c_rows": crc32c_cuda.launches,
+                                   "wall_s": time.perf_counter() - t0}
+
+        gen.preload = lambda: counted("preload", real_preload)
+        gen._run_phase = lambda name, *a, **kw: counted(
+            name, real_phase, name, *a, **kw)
+        t0 = time.perf_counter()
+        with _fast_death_kill(cluster, g_conf()), StackSampler() as sampler:
+            report = gen.run(clean_timeout=600.0)
+        run_s = time.perf_counter() - t0
+        stats = dict(_engine_handle(cluster).stats)
+
+    phases = report["phases"]
+    names = [p["phase"] for p in phases]
+    check(names == ["healthy", "degraded", "recovering", "recovered"],
+          f"ladder phases {names}")
+    for p in phases:
+        check(p["ops"] > 0, f"phase {p['phase']} served no op")
+    verify = report["verify"]
+    for key in ("lost_acked", "wrong_bytes", "corruptions"):
+        check(verify[key] == [], f"durability sweep: {key} {verify[key][:3]}")
+    check(stats["errors"] == 0 and stats["decode_errors"] == 0,
+          f"engine errors: {stats}")
+    if on_card:
+        h = launches["healthy"]
+        check(h["gf_matvec"] > 0 and h["crc32c_rows"] > 0,
+              f"healthy-phase launches {h}")
+    victim = CLUSTER_OSDS - 1
+    out = {"phase": "serving", "card": smi, "backend": backend,
+           "profile": "isa reed_sol_van k=8 m=3, stripe unit 4096",
+           "osds": CLUSTER_OSDS, "auth": "cephx", "pg_num": CLUSTER_PG_NUM,
+           "spec": report["spec"], "victim": victim,
+           "heartbeat": {**CLUSTER_GRACE, "while_killing": FAST_DEATH},
+           "boot_s": boot_s, "run_s": run_s,
+           "preload": launches["preload"],
+           "phases": [{key: p[key] for key in
+                       ("phase", "seconds", "ops", "ops_per_s", "MBps",
+                        "p50_ms", "p99_ms", "errors", "error_kinds",
+                        "mode", "health")}
+                      | {"launches": launches[p["phase"]]}
+                      for p in phases],
+           "qos": report["qos"],
+           "verify": {"acked_keys": verify["acked_keys"],
+                      **{key: verify[key] for key in
+                         ("lost_acked", "wrong_bytes", "corruptions")}},
+           "fault_log": report["fault_log"],
+           "engine": {key: stats[key] for key in
+                      ("flushes", "host_flushes", "ops", "decode_flushes",
+                       "decode_ops", "max_inflight_depth")},
+           "cephx_share_of_busy_samples":
+               sampler.file_share("parallel/auth.py"),
+           "host_split": sampler.report()}
+    emit(out)
+    return out
+
+
+#: the arguments that run phases 5c, 5d, 5e and 5f alone (each the child
 #: process of :func:`phase_in_child`)
 CLUSTER_CHILD_ARG = "--cluster-phase"
 SCRUB_CHILD_ARG = "--scrub-phase"
+CRIMSON_CHILD_ARG = "--crimson-phase"
+SERVING_CHILD_ARG = "--serving-phase"
 
 
 def phase_in_child(arg: str, phase: str, timeout: float = 900) -> dict:
@@ -2481,9 +2917,6 @@ def main() -> int:
     del results, streams
     engine_phase(dev, codec, sinfo, smi, flush_s)
 
-    # -- 5c. the OSD chain: a MiniCluster pool on the card -----------------
-    cluster_launches = phase_in_child(CLUSTER_CHILD_ARG, "cluster")["launches"]
-
     # -- 6-8. Clay -------------------------------------------------------
     clay = clay_phases(dev, hbm, smi)
 
@@ -2502,8 +2935,20 @@ def main() -> int:
     # -- 13. the engine under torch.profiler ------------------------------
     engine_profile_phase(dev, codec, sinfo)
 
-    # -- 5d. deep scrub over BlockStore on the card, last: profiler
-    # sessions in this process after its child came back empty (phase 8)
+    # -- 5c-5f. the cluster phases, each in a child process on the card,
+    # after every profiler session of this process: sessions after a
+    # cluster child have come back empty (phase 8) --------------------------
+    # 5c. the OSD chain: a MiniCluster pool on the card
+    threaded = phase_in_child(CLUSTER_CHILD_ARG, "cluster")
+    cluster_launches = threaded["launches"]
+    # 5e. the same pool on crimson OSDs, beside 5c's threaded steps
+    crimson = phase_in_child(CRIMSON_CHILD_ARG, "crimson")
+    emit(crimson_vs_threaded(crimson, threaded, smi))
+    # 5f. degraded serving under cephx
+    serving = phase_in_child(SERVING_CHILD_ARG, "serving")
+    serving_launches = {"preload": serving["preload"]} | {
+        p["phase"]: p["launches"] for p in serving["phases"]}
+    # 5d. deep scrub over BlockStore
     scrub_launches = phase_in_child(SCRUB_CHILD_ARG, "scrub")["launches"]
 
     # -- 9. summary --------------------------------------------------------
@@ -2520,6 +2965,10 @@ def main() -> int:
          "device_ms": timings["encode"]["device_ms"],
          "cluster_launches": {step: n["gf_matvec"] for step, n
                               in cluster_launches.items()},
+         "crimson_launches": {step: n["gf_matvec"] for step, n
+                              in crimson["launches"].items()},
+         "serving_launches": {step: n["gf_matvec"] for step, n
+                              in serving_launches.items()},
          "scrub_launches": {step: n["gf_matvec"] for step, n
                             in scrub_launches.items()},
          "decode": {label: {key: timings[label][key] for key in
@@ -2537,6 +2986,10 @@ def main() -> int:
          "wrapper_ms": b2_wrapper_s * 1e3, "device_ms": b2_dev_ms,
          "cluster_launches": {step: n["crc32c_rows"] for step, n
                               in cluster_launches.items()},
+         "crimson_launches": {step: n["crc32c_rows"] for step, n
+                              in crimson["launches"].items()},
+         "serving_launches": {step: n["crc32c_rows"] for step, n
+                              in serving_launches.items()},
          "scrub_launches": {step: n["crc32c_rows"] for step, n
                             in scrub_launches.items()}},
     ] + clay + [
@@ -2557,4 +3010,8 @@ if __name__ == "__main__":
         raise SystemExit(child_main(cluster_phase))
     if SCRUB_CHILD_ARG in sys.argv[1:]:
         raise SystemExit(child_main(scrub_phase))
+    if CRIMSON_CHILD_ARG in sys.argv[1:]:
+        raise SystemExit(child_main(crimson_phase))
+    if SERVING_CHILD_ARG in sys.argv[1:]:
+        raise SystemExit(child_main(serving_phase))
     raise SystemExit(main())

@@ -59,23 +59,57 @@ def fast_death():
             conf.set(k, v)
 
 
+@pytest.fixture
+def no_early_resend():
+    """Keep the client from resending a write that is slow but alive, in
+    both packages' configs, for the comparisons of stored state. The
+    objecter resends an unanswered op after 1-2 s
+    (``objecter_resend_interval`` 2 s, jittered), and the OSD runs a
+    resend of a ``write_full`` whose sub-writes are still in flight a
+    second time (its dup-op cache holds completed ops only), so that
+    object gets one more PG log entry and version. Under the 6-worker
+    tier-1 run a 12-OSD cluster's write took that long, and the stores
+    differed in the PG log (``test_shards_match_reference``); the
+    in-process messenger loses no frame, so these tests need no resend.
+    :func:`test_resend_of_a_slow_write_runs_it_again` shows the
+    mechanism in both packages."""
+    keys = ("objecter_resend_interval", "objecter_resend_max")
+    saved = []
+    for conf in (g_conf(), ref_conf()):
+        saved.append((conf, {k: conf[k] for k in keys}))
+        for k in keys:
+            conf.set(k, 120.0)
+    yield
+    for conf, old in saved:
+        for k, v in old.items():
+            conf.set(k, v)
+
+
 def _stores(cluster) -> dict:
     """(pool, ps, position, object) -> (data, attrs, omap), read from the
-    store of the OSD that the map puts at that position."""
+    store of the OSD that the map puts at that position (a crimson OSD
+    keeps a store per reactor: the one holding the PG's collection)."""
     osdmap = cluster.mon.osdmap
     out = {}
     for pool_id, pool in osdmap.pools.items():
         for ps in range(pool.pg_num):
             _, acting, _ = osdmap.pg_to_up_acting(pool_id, ps)
             for pos, osd in enumerate(acting):
-                store = cluster._stores.get(osd)
+                stores = cluster._stores.get(osd)
+                if not isinstance(stores, list):
+                    stores = [stores]
                 cid = pg_cid(pool_id, ps, pos)
-                if store is None or cid not in store.list_collections():
-                    continue
-                for oid in store.list_objects(cid):
-                    out[(pool_id, ps, pos, oid)] = (
-                        store.read(cid, oid), store.getattrs(cid, oid),
-                        store.omap_get(cid, oid))
+                for store in stores:
+                    if store is None or \
+                            cid not in store.list_collections():
+                        continue
+                    for oid in store.list_objects(cid):
+                        key = (pool_id, ps, pos, oid)
+                        assert key not in out, f"{key} in two stores"
+                        out[key] = (
+                            store.read(cid, oid),
+                            store.getattrs(cid, oid),
+                            store.omap_get(cid, oid))
     return out
 
 
@@ -85,10 +119,11 @@ def _payloads(sizes, seed):
             for s in sizes]
 
 
-def _write_sequence(cls, n_osds, pool, payloads):
-    """Boot ``cls``, create the pool, write ``payloads`` one after the
-    other, read each back, and return the stored objects (``_stores``)."""
-    with cls(n_osds=n_osds) as cluster:
+def _write_sequence(cls, n_osds, pool, payloads, **cluster_kw):
+    """Boot ``cls`` (with ``cluster_kw``, e.g. ``osd_flavor``), create the
+    pool, write ``payloads`` one after the other, read each back, and
+    return the stored objects (``_stores``)."""
+    with cls(n_osds=n_osds, **cluster_kw) as cluster:
         io = cluster.client().open_ioctx(_create(cluster, pool))
         for i, pay in enumerate(payloads):
             io.write_full(f"o{i}", pay)
@@ -121,7 +156,7 @@ CASES = {
 
 @pytest.mark.parametrize("route", ["device", "host"])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_shards_match_reference(case, route):
+def test_shards_match_reference(case, route, no_early_resend):
     """Shard for shard against the reference cluster: one byte, stripe
     width -1/+0/+1, a multiple of 512 that is not one of the stripe
     width, a length that is not a multiple of 512, and 256 KiB."""
@@ -138,6 +173,81 @@ def test_shards_match_reference(case, route):
     shards = [key for key in ref if key[3] != PGMETA]
     assert len(shards) == len(payloads) * (k + m)
     _assert_same_stores(ref, port)
+
+
+@pytest.mark.parametrize("pkg", ["reference", "port"])
+def test_resend_of_a_slow_write_runs_it_again(pkg):
+    """The mechanism behind the resend fixture, the same in both
+    packages: a ``write_full`` whose sub-write commits are held 6 s is
+    resent by the client (after 1-3 s: a 1-2 s delay checked each 1 s)
+    and run a second time, so the object's shards reach version 3 where
+    one write gives version 2 (pg_num 1: the first write took 1)."""
+    if pkg == "reference":
+        from ceph_tpu.utils import faults as pkg_faults
+        cls = RefCluster
+    else:
+        pkg_faults, cls = faults, MiniCluster
+    reg = pkg_faults.reset_for_tests(seed=0)
+    versions = {}
+    try:
+        with cls(n_osds=3) as cluster:
+            cluster.create_ec_pool("rs", k=2, m=1, pg_num=1)
+            io = cluster.client().open_ioctx("rs")
+            io.write_full("fast", b"f" * 5000)
+            rule = reg.add("msgr_delay", entity="osd.*", msg_type=31,
+                           delay_s=6.0, max_fires=2)   # MECSubWriteReply
+            io.write_full("slow", b"s" * 5000)
+            rule.remove()
+            assert io.read("slow") == b"s" * 5000
+            for (_pool, _ps, _pos, oid), (_d, attrs, _o) in \
+                    _stores(cluster).items():
+                if oid != PGMETA:
+                    versions.setdefault(oid, set()).add(
+                        int.from_bytes(attrs["v"], "little"))
+    finally:
+        reg.clear()
+    # pg_num 1: "fast" is v1, "slow" v2 written once, v3 run twice
+    assert versions == {"fast": {1}, "slow": {3}}
+
+
+@pytest.mark.parametrize("pkg", ["reference", "port"])
+def test_stale_missing_entries_do_not_livelock_recovery(pkg):
+    """The recovery livelock (ROADMAP §C), on its smallest sequence: the
+    primary's PG lists both other positions as missing the object's
+    current version, which their shards hold. The recovery read avoids
+    listed positions, so fewer than k remain and every round fails; the
+    rollback probe then finds k shards at that version. The reference
+    leaves the object to the failing path forever (its client reads,
+    which avoid the listed positions too, may answer ENOENT meanwhile);
+    the port drops the entries of the positions the probe finds holding
+    the version, writing nothing, and the object reads back at it."""
+    cls = RefCluster if pkg == "reference" else MiniCluster
+    payload = bytes(range(256)) * 80
+    with cls(n_osds=3) as cluster:
+        cluster.create_ec_pool("sm", k=2, m=1, pg_num=1)
+        io = cluster.client().open_ioctx("sm")
+        io.write_full("obj", payload)
+        _, acting, primary = cluster.mon.osdmap.pg_to_up_acting(1, 0)
+        osd = cluster.osds[primary]
+        pg = osd.pgs[(1, 0)]
+        version = pg.log.last_version
+        with pg.lock:
+            pg.peer_missing = {p: {"obj": version} for p in range(3)
+                               if acting[p] != primary}
+        for _ in range(4):
+            osd._recover(pg)
+        left = {p: dict(m) for p, m in pg.peer_missing.items() if m}
+        if pkg == "port":
+            assert io.read("obj") == payload
+        stored = {pos: int.from_bytes(attrs["v"], "little")
+                  for (_pool, _ps, pos, oid), (_d, attrs, _o)
+                  in _stores(cluster).items() if oid == "obj"}
+    assert stored == {0: version, 1: version, 2: version}
+    if pkg == "reference":
+        assert sorted(left) == sorted(p for p in range(3)
+                                      if acting[p] != primary)
+    else:
+        assert left == {}
 
 
 def _engine_stats(cluster) -> list[dict]:

@@ -13,7 +13,10 @@ matrices, ragged B and the largest matrix it takes, and the host oracle,
 and must refuse what it does not take. The deep-scrub verify on the card
 (B1 + compare + B2) must equal its plain version, and a deep scrub of a
 ``backend=cuda`` pool over BlockStore must convict and repair silent
-flips. Every test here needs an NVIDIA GPU and skips without one.
+flips. A crimson cluster and a cephx cluster write and read a
+``backend=cuda`` pool through B1 and B2, and the load generator's healthy
+phase runs on the card with an empty durability sweep. Every test here
+needs an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -519,6 +522,53 @@ def test_cluster_on_cuda_write_degraded_read_revive(cuda):
     finally:
         for k, v in old.items():
             conf.set(k, v)
+
+
+def _flavour_write_read(**cluster_kw):
+    """A k=2,m=1 ``backend=cuda`` pool on 4 OSDs of a ``MiniCluster``
+    built with ``cluster_kw``: 12 objects past the engine's small-flush
+    host route written and read back; B1 and B2 must launch."""
+    from ceph_tpu_torch.qa.cluster import MiniCluster
+    gf_cuda.reset_launches()
+    crc32c_cuda.reset_launches()
+    with MiniCluster(n_osds=4, **cluster_kw) as cluster:
+        cluster.create_ec_pool("cu", k=2, m=1, pg_num=8, backend="cuda")
+        io = cluster.client().open_ioctx("cu")
+        io.op_timeout = 120.0
+        pays = {f"o{i}": _bytes(950 + i, (600 << 10) + i).tobytes()
+                for i in range(12)}
+        for oid, pay in pays.items():
+            io.write_full(oid, pay)
+        for oid, pay in pays.items():
+            assert io.read(oid) == pay
+    assert gf_cuda.launches > 0 and crc32c_cuda.launches > 0
+
+
+def test_crimson_cluster_on_cuda_write_read(cuda):
+    _flavour_write_read(osd_flavor="crimson")
+
+
+def test_cephx_cluster_on_cuda_write_read(cuda):
+    _flavour_write_read(auth=True)
+
+
+def test_load_gen_healthy_on_cuda(cuda):
+    """``LoadGen.run_healthy`` for 2 s against a ``backend=cuda`` pool:
+    ops served, B1 and B2 launched, the durability sweep empty."""
+    from ceph_tpu_torch.bench.load_gen import LoadGen, LoadSpec
+    from ceph_tpu_torch.qa.cluster import MiniCluster
+    gf_cuda.reset_launches()
+    crc32c_cuda.reset_launches()
+    with MiniCluster(n_osds=4) as cluster:
+        cluster.create_ec_pool("lg", k=2, m=1, pg_num=8, backend="cuda")
+        spec = LoadSpec(n_keys=32, obj_size=600 << 10, read_frac=0.5,
+                        concurrency=4, phase_seconds=2.0, seed=14)
+        out = LoadGen(cluster, "lg", spec).run_healthy()
+    assert out["phases"][0]["ops"] > 0, out["phases"]
+    assert out["verify"]["lost_acked"] == []
+    assert out["verify"]["wrong_bytes"] == []
+    assert out["verify"]["corruptions"] == []
+    assert gf_cuda.launches > 0 and crc32c_cuda.launches > 0
 
 
 @pytest.mark.parametrize("k,m,n_obj,l_b", [(2, 1, 3, 4096), (3, 2, 5, 8192),

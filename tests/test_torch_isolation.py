@@ -67,7 +67,21 @@ def test_scan_covers_the_port():
                  "ceph_tpu_torch/osd/osd.py",
                  "ceph_tpu_torch/parallel/mon.py",
                  "ceph_tpu_torch/parallel/messenger.py",
-                 "ceph_tpu_torch/qa/cluster.py"):
+                 "ceph_tpu_torch/qa/cluster.py",
+                 "ceph_tpu_torch/qa/thrasher.py",
+                 "ceph_tpu_torch/parallel/auth.py",
+                 "ceph_tpu_torch/crimson/__init__.py",
+                 "ceph_tpu_torch/crimson/osd.py",
+                 "ceph_tpu_torch/crimson/reactor.py",
+                 "ceph_tpu_torch/crimson/readpath.py",
+                 "ceph_tpu_torch/utils/flight_recorder.py",
+                 "ceph_tpu_torch/mgr/__init__.py",
+                 "ceph_tpu_torch/mgr/mgr.py",
+                 "ceph_tpu_torch/mgr/mgr_module.py",
+                 "ceph_tpu_torch/mgr/health.py",
+                 "ceph_tpu_torch/tools/rados_cli.py",
+                 "ceph_tpu_torch/bench/cluster_bench.py",
+                 "ceph_tpu_torch/bench/load_gen.py"):
         assert must in rel
 
 
