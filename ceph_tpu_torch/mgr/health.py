@@ -31,10 +31,7 @@ Transitions are logged; the first transition *into* ``HEALTH_ERR``
 auto-emits a diagnostic bundle (``dump_diagnostics()``): dout ring,
 in-flight + historic + slowest ops, traces, counter time-series,
 health history, device state — one JSON blob an operator can read
-after the fact. The port's bundle reports its unported sources
-(``compile_cache``, the tuner) as :data:`NOT_PORTED`, and its autopsy
-section comes from the stand-in store, which keeps nothing (ROADMAP
-A.6).
+after the fact.
 """
 
 from __future__ import annotations
@@ -54,9 +51,6 @@ from ceph_tpu_torch.utils.perf_counters import collection
 log = Dout("health")
 
 OK, WARN, ERR = "HEALTH_OK", "HEALTH_WARN", "HEALTH_ERR"
-
-#: what a diagnostic-bundle section of an unported module reports
-NOT_PORTED = "not ported (A.6)"
 _RANK = {OK: 0, WARN: 1, ERR: 2}
 
 
@@ -471,9 +465,7 @@ class HealthEngine:
         section("trace_stats", lambda: tracer().stats())
         # slow-op autopsies: the per-op post-mortems ride
         # the bundle so one blob answers "which ops were bad and why"
-        # (utils/autopsy is not ported: the stand-in keeps nothing,
-        # ROADMAP A.6)
-        from ceph_tpu_torch.utils.noop_hooks import autopsy_store
+        from ceph_tpu_torch.utils.autopsy import store as autopsy_store
         section("autopsies", lambda: autopsy_store().dump())
         from ceph_tpu_torch.utils.device_telemetry import telemetry
         section("device", lambda: telemetry().snapshot())
@@ -492,11 +484,19 @@ class HealthEngine:
             section("profiler", lambda: {
                 "status": prof.status(),
                 "top_frames": prof.top_frames(10)})
-        # utils/compile_cache and the closed-loop tuner (mgr/tuner)
-        # are not ported; their sections say so (the kernel libraries
-        # are named by a hash of their source, ops/cuda_build.py)
-        section("compile_cache", lambda: {"error": NOT_PORTED})
-        bundle["tuner"] = {"error": NOT_PORTED}
+        # the kernel build ledger: libraries found built / built
+        from ceph_tpu_torch.utils import compile_cache
+        section("compile_cache", lambda: {
+            "dir": compile_cache.enabled_dir(),
+            "ledger": compile_cache.ledger()})
+        # closed-loop tuner: the knob vector and recent step/revert
+        # decisions ride the bundle ONLY when a tuner is live —
+        # probing must not instantiate one (the literal-NOOP contract
+        # when the tuner is off)
+        from ceph_tpu_torch.mgr import tuner as _tuner
+        tuner_state = _tuner.status_if_active()
+        if tuner_state is not None:
+            bundle["tuner"] = tuner_state
         return bundle
 
     def _emit_bundle(self, reason: str) -> None:

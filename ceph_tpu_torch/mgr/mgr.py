@@ -6,10 +6,6 @@ reach modules via ``ceph <module> <cmd>`` forwarded through mon->mgr.
 Here the Mgr holds a mon session (RadosClient), ticks each module on
 its own cadence, and routes ``<module> <sub>`` commands arriving on its
 admin socket (``<module> status`` — the ``ceph tell mgr`` seam).
-
-The port hosts the modules in :data:`PORTED_MODULES`; a Mgr asked for
-any other (the default set among them) raises ``NotImplementedError``
-naming them (ROADMAP A.6).
 """
 
 from __future__ import annotations
@@ -35,20 +31,12 @@ log = Dout("mgr")
 DEFAULT_MODULES = ("balancer", "progress", "telemetry",
                    "dashboard", "health", "trace", "tuner")
 
-#: the mgr modules the port has (the others are ROADMAP A.6)
-PORTED_MODULES = ("health",)
-
 
 class Mgr:
     def __init__(self, mon_addr: str, name: str = "x",
                  modules: tuple[str, ...] = DEFAULT_MODULES,
                  asok_dir: str | None = None,
                  auth: tuple[str, bytes] | None = None) -> None:
-        missing = [m for m in modules if m not in PORTED_MODULES]
-        if missing:
-            raise NotImplementedError(
-                f"mgr modules not ported (ROADMAP A.6): "
-                f"{', '.join(missing)}")
         self.name = name
         self.mon_addr = mon_addr
         self.rados = RadosClient(mon_addr, name=f"mgr.{name}", auth=auth)
@@ -66,8 +54,14 @@ class Mgr:
 
     def start(self) -> "Mgr":
         self.rados.connect()
-        for mod_name in self._module_names:
-            self.modules[mod_name] = self._load_module(mod_name)
+        try:
+            for mod_name in self._module_names:
+                self.modules[mod_name] = self._load_module(mod_name)
+        except BaseException:
+            for mod in self.modules.values():
+                mod.shutdown()
+            self.rados.shutdown()
+            raise
         register_common_commands(self.asok, self.logger)
         for mod_name, mod in self.modules.items():
             for sub in getattr(mod, "COMMANDS", ("status",)):

@@ -5,7 +5,9 @@ one ``nvcc`` per source builds in seconds; :func:`build_all` starts them
 all at once. Libraries land in ``build/torch_ext/`` at the repository
 root, named by a hash of source and flags, so an unchanged kernel is not
 rebuilt within one checkout. Nothing is built at import time: the first
-launch (or :func:`build_all`) builds.
+launch (or :func:`build_all`) builds. The build ledger
+(``utils/compile_cache``) records, once a process, each library found
+built or built with its ``nvcc`` wall.
 
 A missing ``nvcc`` or a failed build raises :class:`KernelBuildError` —
 there is no fallback to the plain torch versions.
@@ -77,13 +79,16 @@ def build_all(names) -> dict[str, str]:
     """Build every named kernel, all nvcc processes in parallel.
     Returns name -> compiler output (ptxas register/shared-memory
     report); raises KernelBuildError if any build fails."""
+    from ceph_tpu_torch.utils import compile_cache
     with _lock:
+        t0 = time.monotonic()
         started = {name: _start(name) for name in names}
         logs, failed = {}, []
-        deadline = time.monotonic() + BUILD_TIMEOUT_S
+        deadline = t0 + BUILD_TIMEOUT_S
         for name, (proc, out, tmp) in started.items():
             if proc is None:
                 logs[name] = "(cached)"
+                compile_cache.note_build(name, out.name, None)
                 continue
             try:
                 log, _ = proc.communicate(
@@ -98,6 +103,8 @@ def build_all(names) -> dict[str, str]:
                 failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             else:
                 os.replace(tmp, out)
+                compile_cache.note_build(name, out.name,
+                                         time.monotonic() - t0)
         if failed:
             raise KernelBuildError("\n".join(failed))
         return logs

@@ -45,13 +45,17 @@ a per-signature concat buffer on the producer thread
 key sharing a :class:`FlushGroup`), and the shared engine service
 (:func:`shared_engine_attach`).
 
+Knobs: the window, the flush threshold and the two crossovers resolve
+explicit argument > environment (``CEPH_TPU_*``) > ``g_conf`` Option >
+default, as in the reference. Each knob that no argument or environment
+variable pins registers a config observer, so the mgr tuner's pushes
+through the ``mon`` layer land as one attribute write — never a per-flush
+config read; ``stop()`` detaches them.
+
 Not ported yet: the multi-device mesh route (ROADMAP A.5: the placement
-slot is always 0 and ``ec_util`` raises on a mesh) and the config
-observers of the four knobs (A.6: knobs resolve explicit argument, then
-environment, then default, once at construction). The lock witness and
-the static tracepoints are the do-nothing stand-ins of
-``utils/noop_hooks`` (A.6); the other host hooks are the port's copies of
-the reference's modules.
+slot is always 0 and ``ec_util`` raises on a mesh). The lock witness is
+the do-nothing stand-in of ``utils/noop_hooks`` (A.6); the other host
+hooks are the port's copies of the reference's modules.
 """
 
 from __future__ import annotations
@@ -73,17 +77,19 @@ from ceph_tpu_torch.utils import profiler as _prof
 from ceph_tpu_torch.utils import stage_clock as _stage_clock
 from ceph_tpu_torch.utils.device_telemetry import telemetry as _telemetry
 from ceph_tpu_torch.utils import dispatch_telemetry as _dsp
+from ceph_tpu_torch.utils.config import g_conf
 from ceph_tpu_torch.utils import flow_telemetry as _flows
 from ceph_tpu_torch.utils.dout import Dout
-from ceph_tpu_torch.utils.noop_hooks import (make_condition, make_lock,
-                                             tracepoint)
+from ceph_tpu_torch.utils import tracepoints as _tracepoints
+from ceph_tpu_torch.utils.noop_hooks import make_condition, make_lock
 from ceph_tpu_torch.utils.tracing import NOOP
 
 log = Dout("osd")
 
-_TP_FLUSH = tracepoint("osd", "device_flush", "ops", "bytes")
-_TP_DECODE_FLUSH = tracepoint("osd", "device_decode_flush", "ops",
-                              "signature")
+_TP_FLUSH = _tracepoints.provider("osd").point(
+    "device_flush", "ops", "bytes")
+_TP_DECODE_FLUSH = _tracepoints.provider("osd").point(
+    "device_decode_flush", "ops", "signature")
 
 
 def bulk_ingest_enabled() -> bool:
@@ -94,20 +100,18 @@ def bulk_ingest_enabled() -> bool:
     return os.environ.get("CEPH_TPU_BULK_INGEST", "1") != "0"
 
 
-def mesh_flush_threshold() -> int:
-    """The dense->mesh crossover in bytes (env
-    ``CEPH_TPU_MESH_FLUSH_BYTES``, default 1 MiB). Kept for the
-    reference's interface: the port has no mesh route yet."""
-    env = os.environ.get("CEPH_TPU_MESH_FLUSH_BYTES")
-    return int(env) if env is not None else 1 << 20
-
-
-def _conf_knob(env_name: str, fallback: int) -> int:
+def _conf_knob(env_name: str, option: str) -> tuple[int, bool]:
     """Resolve one engine knob at construction: the environment (the
-    reference's ``CEPH_TPU_*`` name) beats the default. An explicit
-    constructor argument beats both (the caller checks it first)."""
+    reference's ``CEPH_TPU_*`` name) beats the ``g_conf`` Option, whose
+    schema holds the default. Returns (value, pinned): a knob the
+    environment pins must NOT track runtime config pushes, an unpinned
+    one must (the tuner's actuation path is a runtime ``config set``).
+    An explicit constructor argument beats both and pins (the caller
+    checks it first)."""
     env = os.environ.get(env_name)
-    return int(env) if env is not None else fallback
+    if env is not None:
+        return int(env), True
+    return int(g_conf()[option]), False
 
 
 _streams_lock = threading.Lock()
@@ -121,7 +125,9 @@ def slot_stream(device, slot: int) -> torch.cuda.Stream:
     with one a slot, upload, compute and download overlap across the
     window. Each flush also allocates on its slot's stream, where the
     caching allocator reuses its blocks only after that stream's earlier
-    work."""
+    work. Streams are made on first use and kept: a window that the
+    tuner widens to the ``engine_window`` knob's bound (16) makes at
+    most 16 a device."""
     device = torch.device(device)
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -382,27 +388,43 @@ class DeviceEncodeEngine:
         self._last_group: FlushGroup | None = None
         self._last_group_event: threading.Event | None = None
         self._counters = counters
+        #: (option, observer) pairs registered on g_conf; stop()
+        #: detaches them
+        self._cfg_observers: list[tuple[str, Callable]] = []
+
+        def knob(arg, env_name: str, option: str) -> tuple[int, bool]:
+            if arg is not None:
+                return int(arg), True
+            return _conf_knob(env_name, option)
+
         #: staged payload bytes that force a launch
-        self._flush_bytes = flush_bytes if flush_bytes is not None else \
-            _conf_knob("CEPH_TPU_ENGINE_FLUSH_BYTES", 64 << 20)
+        self._flush_bytes, fb_pinned = knob(
+            flush_bytes, "CEPH_TPU_ENGINE_FLUSH_BYTES",
+            "engine_flush_bytes")
         #: zero-copy staging, in segments of one flush each
         self._stager = _ConcatStager(self._flush_bytes) \
             if self._bulk else None
         #: max launched-not-retired encode batches; 1 = serial engine
-        self._window = max(1, window if window is not None else
-                           _conf_knob("CEPH_TPU_ENGINE_WINDOW", 3))
+        window, w_pinned = knob(window, "CEPH_TPU_ENGINE_WINDOW",
+                                "engine_window")
+        self._window = max(1, window)
         #: kept for the reference's interface: no mesh route yet
-        self._mesh_flush_bytes = mesh_flush_bytes \
-            if mesh_flush_bytes is not None else mesh_flush_threshold()
+        self._mesh_flush_bytes, mfb_pinned = knob(
+            mesh_flush_bytes, "CEPH_TPU_MESH_FLUSH_BYTES",
+            "mesh_flush_bytes")
         #: flushes SMALLER than this take the host matvec instead of a
         #: device launch (the bottom rung of the routing ladder); 0
         #: disables; bulk-ingest only
-        self._host_flush_bytes = host_flush_bytes \
-            if host_flush_bytes is not None else \
-            _conf_knob("CEPH_TPU_HOST_FLUSH_BYTES", 512 << 10)
+        self._host_flush_bytes, hfb_pinned = knob(
+            host_flush_bytes, "CEPH_TPU_HOST_FLUSH_BYTES",
+            "host_flush_bytes")
+        #: which knobs track runtime config pushes (pins do not)
+        self._knob_unpinned = {"engine_flush_bytes": not fb_pinned,
+                               "engine_window": not w_pinned,
+                               "mesh_flush_bytes": not mfb_pinned,
+                               "host_flush_bytes": not hfb_pinned}
         #: device launches so far: launch n runs on window slot
-        #: n % window's side stream, which launch n - window (retired
-        #: before launch n could pass the window) last used
+        #: n % (the window when it launches)
         self._launch_seq = 0
         self._q: queue.SimpleQueue = queue.SimpleQueue()
         self._running = True
@@ -423,7 +445,13 @@ class DeviceEncodeEngine:
                       "aux_runs": 0,
                       # engine-thread seconds spent launching +
                       # finalizing device batches
-                      "busy_s": 0.0}
+                      "busy_s": 0.0,
+                      # "window:slot" -> device flushes launched on
+                      # that slot while the window had that depth
+                      "window_slot_flushes": {},
+                      # window -> deepest in-flight depth reached while
+                      # the window had that value
+                      "window_max_depth": {}}
         _telemetry().note_engine_window(self._window)
         #: launch pipeline: deque of (items, finalize, kspans, launch_t,
         #: nbytes) batches launched but not yet harvested, up to
@@ -439,6 +467,49 @@ class DeviceEncodeEngine:
             target=self._retire_run, name="ec-device-retire",
             daemon=True)
         self._retire_thread.start()
+        # runtime knob observers attach LAST (fully-built engine: the
+        # window observer touches the inflight CV)
+        self._observe_knob("engine_flush_bytes", self._set_flush_bytes)
+        self._observe_knob("engine_window", self._set_window)
+        self._observe_knob("mesh_flush_bytes",
+                           self._set_mesh_flush_bytes)
+        self._observe_knob("host_flush_bytes",
+                           self._set_host_flush_bytes)
+
+    # -- runtime knob observers ---------------------------------------
+    def _observe_knob(self, option: str, fn) -> None:
+        if not self._knob_unpinned[option]:
+            return              # an argument or env pin wins
+        g_conf().add_observer(option, fn)
+        self._cfg_observers.append((option, fn))
+
+    def _set_window(self, _name: str, value) -> None:
+        """Runtime window change: widening wakes launchers blocked in
+        _wait_window; shrinking takes effect at their next wait check
+        (batches already out above the new bound drain naturally — the
+        window is a launch gate, not a cap on what is in flight)."""
+        with self._ifcv:
+            self._window = max(1, int(value))
+            self._ifcv.notify_all()
+        _telemetry().note_engine_window(self._window)
+
+    def _set_flush_bytes(self, _name: str, value) -> None:
+        """Runtime flush-threshold change. The engine loop reads the
+        threshold at each staged op; the stager takes it as the size
+        of its NEXT segment (a segment holds whole ops, so no staged
+        op is cut, and the open segment keeps its size). Pinned host
+        memory for staging then scales with the threshold."""
+        value = max(1, int(value))
+        if self._stager is not None:
+            with self._stager.lock:
+                self._stager.seg_bytes = value
+        self._flush_bytes = value
+
+    def _set_mesh_flush_bytes(self, _name: str, value) -> None:
+        self._mesh_flush_bytes = max(0, int(value))
+
+    def _set_host_flush_bytes(self, _name: str, value) -> None:
+        self._host_flush_bytes = max(0, int(value))
 
     # -- dispatch routing (per-OSD when shared) -----------------------
     def _dispatch(self, key, fn) -> None:
@@ -607,6 +678,11 @@ class DeviceEncodeEngine:
         return box[0]
 
     def stop(self) -> None:
+        # detach the knob observers first: a tuner push must not land
+        # an attribute write on an engine that is tearing down
+        for option, fn in self._cfg_observers:
+            g_conf().remove_observer(option, fn)
+        self._cfg_observers = []
         self._running = False
         self._q.put(None)
         self._thread.join(timeout=10)
@@ -772,15 +848,26 @@ class DeviceEncodeEngine:
             if not host:
                 batcher = ec_util.StripeBatcher(
                     sinfo, codec, on_fallback=self._note_fused_fallback)
-                slot = self._launch_seq % self._window
-                self._launch_seq += 1
                 for i, buf in enumerate(views):
                     batcher.append(i, buf)
                 if batch is not None:
                     batcher.set_preconcat(batch)
             # window backpressure BEFORE the launch: with window=1 batch
             # N+1 launches only after N fully retired
-            self._wait_window()
+            window = self._wait_window()
+            if not host:
+                # Slot invariant: while the window holds still, launch
+                # n's slot was last used by launch n - window, which
+                # retired before n passed _wait_window. Across a window
+                # change two in-flight launches may share a slot; its
+                # stream runs them in order (and the caching allocator
+                # reuses a block only after that stream's earlier
+                # work), so they serialize and never race.
+                slot = self._launch_seq % window
+                self._launch_seq += 1
+                key = f"{window}:{slot}"
+                wsf = self.stats["window_slot_flushes"]
+                wsf[key] = wsf.get(key, 0) + 1
             try:
                 _faults.engine_fault("launch")
                 if host:
@@ -831,13 +918,14 @@ class DeviceEncodeEngine:
                 self.stats["busy_s"] += _time.perf_counter() - t0
         pending.clear()
 
-    def _wait_window(self) -> None:
+    def _wait_window(self) -> int:
         """Block until the launch window has a free slot (counting a
-        batch mid-harvest)."""
+        batch mid-harvest); returns the window it was free in."""
         with self._ifcv:
             while len(self._inflight) + \
                     (1 if self._retiring else 0) >= self._window:
                 self._ifcv.wait()
+            return self._window
 
     def _park(self, entry) -> None:
         """Hand a launched (or poison) batch to the retire thread:
@@ -850,9 +938,12 @@ class DeviceEncodeEngine:
             self._inflight.append(entry)
             depth = len(self._inflight) + \
                 (1 if self._retiring else 0)
+            window = self._window
             self._ifcv.notify_all()
         self.stats["max_inflight_depth"] = max(
             self.stats["max_inflight_depth"], depth)
+        wmd = self.stats["window_max_depth"]
+        wmd[window] = max(wmd.get(window, 0), depth)
         tel.note_inflight_depth(depth)
         tel.note_engine_inflight(depth)
 

@@ -82,15 +82,14 @@ log = Dout("osd")
 
 # static tracepoints (src/tracing/{osd,oprequest}.tp role): declared
 # at import like a compiled-in provider; near-zero cost when disabled
-# (utils/tracepoints is not ported: never-enabled stand-ins, ROADMAP A.6)
-from ceph_tpu_torch.utils.noop_hooks import tracepoint  # noqa: E402
+from ceph_tpu_torch.utils import tracepoints as _tracepoints  # noqa: E402
 
-_TP_OP_DEQUEUE = tracepoint("oprequest", "op_dequeue", "oid", "op",
-                            "client")
-_TP_OP_REPLY = tracepoint("oprequest", "op_reply", "oid", "code",
-                          "lat_us")
-_TP_RECOVERY_PUSH = tracepoint("osd", "recovery_push", "oid", "shard",
-                               "version")
+_TP_OP_DEQUEUE = _tracepoints.provider("oprequest").point(
+    "op_dequeue", "oid", "op", "client")
+_TP_OP_REPLY = _tracepoints.provider("oprequest").point(
+    "op_reply", "oid", "code", "lat_us")
+_TP_RECOVERY_PUSH = _tracepoints.provider("osd").point(
+    "recovery_push", "oid", "shard", "version")
 
 # errno-style codes carried in MOSDOpReply.code
 EAGAIN = -11
@@ -652,8 +651,8 @@ class OSD:
             lambda a: tracing.tracer().dump(a.get("trace_id")),
             "finished dataflow-trace spans (blkin role)")
         tracing.register_asok(self.asok)
-        from ceph_tpu_torch.utils import noop_hooks as _noop
-        _noop.register_autopsy_asok(self.asok)
+        from ceph_tpu_torch.utils import autopsy as _autopsy
+        _autopsy.register_asok(self.asok)
         self.asok.register_command(
             "deep-scrub",
             lambda a: self._asok_deep_scrub(a),
@@ -662,7 +661,8 @@ class OSD:
             "sparse repair")
         from ceph_tpu_torch.utils import device_telemetry as _dt
         _dt.register_asok(self.asok)
-        _noop.register_tracepoints_asok(self.asok)
+        from ceph_tpu_torch.utils import tracepoints as _tp
+        _tp.register_asok(self.asok)
         from ceph_tpu_torch.utils import dataplane as _dp
         _dp.register_asok(self.asok)
         from ceph_tpu_torch.utils import msgr_telemetry as _mt

@@ -5,9 +5,8 @@ store) in one Python process, the way qa/standalone tests boot many
 ceph-osd processes on one host. Helpers mirror ceph-helpers.sh:
 ``create_ec_pool``, ``kill_osd``/``revive_osd``, ``wait_for_clean``.
 
-The port boots both OSD flavours (threaded and crimson) and cephx; the
-mgr boots with the modules the port has (``mgr/mgr.py``
-``PORTED_MODULES``) and raises for the others (ROADMAP A.6).
+The port boots both OSD flavours (threaded and crimson), cephx, and a
+mgr with the reference's default module set.
 """
 
 from __future__ import annotations
@@ -114,9 +113,8 @@ class MiniCluster:
 
     def start_mgr(self, name: str = "x", modules=None):
         """Boot a Mgr daemon against this cluster's mons (run_mgr role
-        of qa/standalone/ceph-helpers.sh). Raises NotImplementedError
-        naming the modules asked for that the port does not have (the
-        default set among them)."""
+        of qa/standalone/ceph-helpers.sh); with no ``modules``, the
+        default set (``mgr.DEFAULT_MODULES``)."""
         from ceph_tpu_torch.mgr import Mgr
         auth = None
         if self.keyring is not None:

@@ -40,11 +40,12 @@ from ceph_tpu_torch.store.object_store import (
     Transaction,
 )
 from ceph_tpu_torch.utils import checksum
-from ceph_tpu_torch.utils import noop_hooks as _noop
+from ceph_tpu_torch.utils import tracepoints as _tracepoints
 from ceph_tpu_torch.utils.encoding import Decoder, Encoder
 from ceph_tpu_torch.utils.noop_hooks import make_lock
 
-_TP_QUEUE_TXN = _noop.tracepoint("objectstore", "queue_transaction", "ops")
+_TP_QUEUE_TXN = _tracepoints.provider("objectstore").point(
+    "queue_transaction", "ops")
 
 #: on-disk compressor ids (bluestore_compression_algorithm role); the
 #: id is stored per blob so config changes never orphan old blobs

@@ -92,11 +92,11 @@ class DeviceTelemetry:
         perf.add_time_avg("compile_time",
                           "wall seconds per compilation")
         perf.add_u64_counter("compile_cache_hits",
-                             "compiles of a signature the persistent "
-                             "XLA cache already held (warm)")
+                             "kernel libraries this process found "
+                             "built (build ledger)")
         perf.add_u64_counter("compile_cache_misses",
-                             "compiles of a first-ever signature "
-                             "(cold; ledger seeded for next process)")
+                             "kernel libraries this process ran nvcc "
+                             "for (build ledger)")
         perf.add_histogram("encode_batch_ops",
                            "ops per stage_encode flush (occupancy)")
         perf.add_histogram("decode_batch_ops",
@@ -243,9 +243,9 @@ class DeviceTelemetry:
         """One compilation of ``signature`` took ``seconds`` wall.
         The second compile of the same signature counts a recompile —
         the bug-class every pow2-bucketed entry point exists to
-        prevent. (The reference also checks the signature against its
-        persistent compile-cache ledger; the port keeps none, so
-        ``compile_cache_hits`` / ``compile_cache_misses`` stay 0.)"""
+        prevent. (``compile_cache_hits`` / ``compile_cache_misses``
+        count kernel libraries found built or built with ``nvcc``:
+        ``utils/compile_cache.note_build``.)"""
         self.perf.inc("compiles")
         self.perf.tinc("compile_time", seconds)
         with self._lock:

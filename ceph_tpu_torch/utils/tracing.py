@@ -421,9 +421,7 @@ class Tracer:
 
     def _autopsy(self, rec: dict, span: Span) -> None:
         try:
-            # utils/autopsy is not ported (ROADMAP A.6)
-            from ceph_tpu_torch.utils.noop_hooks import \
-                autopsy_store as store
+            from ceph_tpu_torch.utils.autopsy import store
             clock = span._clock
             store().record(rec,
                            clock.dump() if clock is not None else None)

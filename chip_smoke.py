@@ -96,7 +96,7 @@ Phases, each printing one JSON line:
    limit. Kernel launch counts are zeroed before and read after each
    step. The phase runs in a child process on the same card (this script
    with ``--cluster-phase``), so the cluster's threads stay out of this
-   process's profiler sessions, after phase 13 with 5e, 5f and 5d;
+   process's profiler sessions, after phase 13 with 5e, 5f, 5g and 5d;
 5d. scrub: deep scrub on the card over the durable store, 5c's
    deployment on BlockStore (the BlueStore role; its data files in a
    temporary directory under ``build/scrub/``): 12 OSDs, the ISA k=8,m=3
@@ -123,7 +123,7 @@ Phases, each printing one JSON line:
    second, batches and objects a batch, and B1 and B2 launches by step
    (counts zeroed before and read after each step). It runs in a child
    process like 5c (``--scrub-phase``), which takes no profiler session,
-   and it runs last. The cluster children (5c, 5e, 5f, 5d) run after
+   and it runs last. The cluster children (5c, 5e, 5f, 5g, 5d) run after
    phase 13: profiler sessions in this process after a cluster child
    have come back empty (phase 8). The ``scrub_times`` line, in
    phase 5, gives the verify program's events and profiler device ms at
@@ -160,6 +160,35 @@ Phases, each printing one JSON line:
    and launches, the QoS verdict beside its bar (printed, not gated), and
    cephx's share of the host's busy samples. Runs in a child process
    (``--serving-phase``);
+5g. mgr: first, as the child's first profiler session, an 8-flush engine
+   burst (16 objects of 1 MiB a flush, window 3) under
+   ``utils/tracepoints.device_trace`` (torch.profiler with CUDA activity,
+   a Chrome trace under ``build/mgr_trace/``), which must list B1's and
+   B2's kernels. Then 5c's pool (12 threaded OSDs on memstore, ISA k=8,
+   m=3, ``backend=cuda``, ``pg_num 32``, the shared engine with its
+   defaults) with ``start_mgr()`` booting the default module set
+   (balancer, progress, telemetry, dashboard, health, trace, tuner) under
+   ``CEPH_TPU_TUNER=1``: the tuner ticks from the mgr's loop (0.5 s,
+   cool-down 3 s, hysteresis 2) on the live sensors and steps knobs
+   through the ``mon`` config layer, which the engine follows through its
+   observers. 512 keys of 1 MiB written from 8 client threads, then 4
+   intervals of 5 s of the load generator's healthy phase (zipfian theta
+   0.99, half reads, 8 closed-loop clients), the dashboard's
+   ``api/health``, ``api/tuner`` and ``api/osds`` fetched over HTTP during
+   the second, and every key read back and checked. Checked: no wrong or
+   lost byte; every tuner knob inside its bounds at every 0.1 s sample;
+   every step or revert of an engine knob landed on the engine (its
+   attribute equal to the pushed value), and at least one step did; after
+   ``mgr.stop()`` and clearing the ``mon`` layer the engine's four knobs
+   are back to their defaults; an archived trace holds a
+   ``kernel_dispatch`` span. The ``mgr`` line prints every decision (time,
+   rule, knob, from, to, landed), the engine's window and flush threshold
+   at each change, the deepest window depth and the flushes a slot for
+   each window value, each interval's ops/s and p99, the launches by
+   step, the API answers, the kept trace tree, the prometheus text's
+   ``tuner_*`` and ``autopsy_*`` samples and the build ledger's hits and
+   misses (the main process requires no miss: phase 2 built every
+   library). Runs in a child process (``--mgr-phase``);
 6. Clay kernels against their plain versions on the card, byte-exact: B3
    and B4 over k=8,m=4,d=11, k=4,m=2 and k=4,m=3,d=6 (virtual nodes) at
    ragged L (B3 also at 64 and 32 Ki lanes, its short form; B3 and B4 from
@@ -1586,12 +1615,430 @@ def serving_phase(smi: str, backend: str = "cuda",
     return out
 
 
-#: the arguments that run phases 5c, 5d, 5e and 5f alone (each the child
-#: process of :func:`phase_in_child`)
+#: phase 5g: the mgr's default module set with the closed-loop tuner live
+#: over 5c's pool: 512 keys of 1 MiB written from 8 client threads, then
+#: the load generator's healthy phase (zipfian theta 0.99, half reads, 8
+#: closed-loop clients) for MGR_INTERVALS intervals of MGR_INTERVAL_S
+MGR_INTERVALS = 4
+MGR_INTERVAL_S = 5.0
+#: the device_trace burst: 8 flushes of 16 objects of 1 MiB
+MGR_TRACE_FLUSHES = 8
+MGR_TRACE_OBJECTS = 16
+#: where device_trace writes its Chrome trace (gitignored)
+MGR_TRACE_DIR = Path(__file__).resolve().parent / "build" / "mgr_trace"
+#: the engine knobs the tuner steps and the engine attribute of each
+ENGINE_KNOBS = {"engine_window": "_window",
+                "engine_flush_bytes": "_flush_bytes",
+                "mesh_flush_bytes": "_mesh_flush_bytes",
+                "host_flush_bytes": "_host_flush_bytes"}
+
+
+def _traced_burst(dev, codec, sinfo) -> dict:
+    """An 8-flush engine burst (held, then released) under
+    ``utils/tracepoints.device_trace``, the first profiler session of
+    the process. Returns the device kernels it lists and the launches."""
+    from ceph_tpu_torch.ops import crc32c_cuda, gf_cuda
+    from ceph_tpu_torch.osd.device_engine import DeviceEncodeEngine
+    from ceph_tpu_torch.utils.tracepoints import device_trace
+    rng = np.random.default_rng(SEED + 15)
+    n = MGR_TRACE_FLUSHES * MGR_TRACE_OBJECTS
+    batch = rng.integers(0, 256, n * OBJECT_BYTES, dtype=np.uint8)
+    objs = [batch[i * OBJECT_BYTES:(i + 1) * OBJECT_BYTES]
+            for i in range(n)]
+    executor = KeyedExecutor(ENGINE_CALLERS)
+    eng = DeviceEncodeEngine(executor.dispatch, window=ENGINE_WINDOW,
+                             flush_bytes=MGR_TRACE_OBJECTS * OBJECT_BYTES)
+    trace = device_trace(str(MGR_TRACE_DIR), device=dev.type)
+    gf_cuda.reset_launches()
+    crc32c_cuda.reset_launches()
+    try:
+        wall, out, _o, _c, _s, _st = _engine_burst(
+            eng, codec, sinfo, objs, 1, prof=trace)
+    finally:
+        eng.stop()
+        executor.stop()
+    check(all(err is None for _crcs, err in out.values()),
+          "traced burst: an op failed")
+    check(eng.stats["flushes"] == MGR_TRACE_FLUSHES,
+          f"traced burst flushes {eng.stats['flushes']}")
+    names = trace.kernel_names()
+    ours = {n: c for n, c in names.items()
+            if "gf_matvec_kernel" in n or "crc32c_rows_kernel" in n}
+    return {"wall_s": wall, "flushes": eng.stats["flushes"],
+            "trace": trace.path,
+            "trace_bytes": os.path.getsize(trace.path),
+            "kernels": ours, "other_kernels": len(names) - len(ours),
+            "launches": {"gf_matvec": gf_cuda.launches,
+                         "crc32c_rows": crc32c_cuda.launches}}
+
+
+class _RecordedSensors:
+    """The tuner's live sensors, each snapshot kept for the phase line."""
+
+    def __init__(self, inner) -> None:
+        self.inner = inner
+        self.snaps: list = []
+
+    def sample(self) -> dict:
+        snap = self.inner.sample()
+        self.snaps.append(snap)
+        return snap
+
+    def brief(self) -> dict:
+        """Why ``window_grow`` (inflight >= window) and ``flush_shrink``
+        (occupancy <= 2 and a mean flush under a quarter of the cap) did
+        or did not fire: how many ticks met each condition, the longest
+        run of such ticks, and the sensors' spread."""
+        def runs(flags):
+            best = cur = 0
+            for f in flags:
+                cur = cur + 1 if f else 0
+                best = max(best, cur)
+            return {"ticks": sum(flags), "longest_run": best}
+        snaps = self.snaps
+        inflight = [int(s.get("inflight", 0)) for s in snaps]
+        occ = [s.get("occupancy", 0) for s in snaps]
+        fbm = [s.get("flush_bytes_mean", 0) for s in snaps]
+        return {"ticks": len(snaps),
+                "inflight_at_tick": {str(v): inflight.count(v)
+                                     for v in sorted(set(inflight))},
+                "window_full": runs([s.get("window", 0) > 0 and
+                                     s.get("inflight", 0) >= s["window"]
+                                     for s in snaps]),
+                "occupancy_max": max(occ, default=0),
+                "occupancy_median": statistics.median(occ) if occ else 0,
+                "flush_bytes_mean_median":
+                    statistics.median(fbm) if fbm else 0}
+
+
+def _http_json(url: str) -> dict:
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def _api_brief(url: str) -> dict:
+    """What the dashboard's ``api/health``, ``api/tuner`` and
+    ``api/osds`` answer over HTTP, cut to their gist."""
+    health = _http_json(url + "api/health")
+    tuner = _http_json(url + "api/tuner")
+    osds = _http_json(url + "api/osds")
+    return {"health": {"status": health["status"],
+                       "checks": sorted(health["checks"])},
+            "tuner": {"enabled": tuner["enabled"],
+                      "pending": tuner.get("pending"),
+                      "counters": tuner.get("counters"),
+                      "knobs": {k: v["value"]
+                                for k, v in tuner["knobs"].items()},
+                      "history": [
+                          (d["kind"], d.get("rule"), d.get("knob"),
+                           d.get("from"), d.get("to"))
+                          for d in tuner.get("history", [])][-8:]},
+            "osds": {"count": len(osds),
+                     "up": sum(v["up"] for v in osds.values()),
+                     "in": sum(v["in"] for v in osds.values())}}
+
+
+def _span_brief(node: dict) -> dict:
+    return {"name": node["name"], "service": node["service"],
+            "ms": round(node["duration"] * 1e3, 3),
+            "children": [_span_brief(c) for c in node["children"]]}
+
+
+def _kept_tree_with(trace_mod, span_name: str) -> dict | None:
+    """One archived trace tree of the mgr trace module that holds a span
+    named ``span_name``, compacted to names, services and ms."""
+    from ceph_tpu_torch.mgr.trace import assemble
+    trace_mod.pull_now()
+    for row in trace_mod.archive.rows():
+        rec = trace_mod.archive.get(row["trace_id"])
+        if any(sp["name"] == span_name for sp in rec["spans"]):
+            tree = assemble(rec)
+            return {k: tree[k] for k in ("trace_id", "reason", "root",
+                                         "duration_ms", "num_spans")} | \
+                {"tree": [_span_brief(n) for n in tree["tree"]]}
+    return None
+
+
+def _preload_threaded(gen, threads: int) -> float:
+    """``LoadGen.preload`` from ``threads`` client threads: token-0 writes
+    of every key, recorded as issued and acked for the durability sweep."""
+    from ceph_tpu_torch.bench.load_gen import payload_for
+
+    def one(r):
+        key = f"lg_{r:05d}"
+        tok = gen._take_token()
+        with gen.state.lock:
+            gen.state.issued.setdefault(key, []).append(tok)
+        gen.io.write_full(key, payload_for(key, tok, gen.spec.obj_size))
+        with gen.state.lock:
+            gen.state.acked.setdefault(key, []).append(tok)
+    return _threaded(one, gen.spec.n_keys, threads)
+
+
+def _verify_threaded(gen, threads: int) -> dict:
+    """``LoadGen.final_verify`` from ``threads`` client threads: every key
+    with an acked write reads back bit-exact with an issued token."""
+    from ceph_tpu_torch.bench.load_gen import verify_payload
+    with gen.state.lock:
+        acked = sorted(k for k, v in gen.state.acked.items() if v)
+        issued = {k: set(v) for k, v in gen.state.issued.items()}
+        corruptions = list(gen.state.corruptions)
+    lost, wrong = [], []
+
+    def one(i):
+        key = acked[i]
+        try:
+            k, tok = verify_payload(gen.io.read(key))
+            if k != key or tok not in issued.get(key, ()):
+                wrong.append(f"{key}: read back ({k}, {tok})")
+        except Exception as exc:
+            lost.append(f"{key}: {type(exc).__name__}: {exc}")
+    wall = _threaded(one, len(acked), threads)
+    return {"acked_keys": len(acked), "lost_acked": lost,
+            "wrong_bytes": wrong, "corruptions": corruptions,
+            "wall_s": wall}
+
+
+def mgr_phase(smi: str, backend: str = "cuda",
+              n_keys: int = CLUSTER_OBJECTS,
+              intervals: int = MGR_INTERVALS,
+              interval_s: float = MGR_INTERVAL_S) -> dict:
+    """Phase 5g: the mgr's default module set with the closed-loop tuner
+    live over 5c's pool (see the module docstring). Returns the phase
+    line; ``backend="torch"`` runs the plain versions on the CPU (a
+    rehearsal: no trace burst, no launch counted)."""
+    from ceph_tpu_torch.bench.load_gen import LoadGen, LoadSpec
+    from ceph_tpu_torch.mgr.mgr import DEFAULT_MODULES
+    from ceph_tpu_torch.models import instance
+    from ceph_tpu_torch.ops import crc32c_cuda, gf_cuda
+    from ceph_tpu_torch.osd import device_engine as de
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.qa.cluster import MiniCluster
+    from ceph_tpu_torch.utils import autopsy, compile_cache, prometheus
+    from ceph_tpu_torch.utils.config import g_conf
+    from ceph_tpu_torch.utils.device_telemetry import telemetry
+    from ceph_tpu_torch.utils.knobs import TUNER_KNOBS
+
+    on_card = backend == "cuda"
+    t_phase = time.perf_counter()
+    traced = None
+    if on_card:
+        dev = torch.device("cuda", 0)
+        codec = instance().factory(
+            "isa", {"k": str(K), "m": str(M), "technique": "reed_sol_van"},
+            device=dev)
+        sinfo = ec_util.StripeInfo(stripe_width=K * CHUNK, chunk_size=CHUNK)
+        traced = _traced_burst(dev, codec, sinfo)
+        kernels = traced["kernels"]
+        check(any("gf_matvec_kernel" in k for k in kernels),
+              f"device_trace lists no B1 kernel: {sorted(kernels)}")
+        check(any("crc32c_rows_kernel" in k for k in kernels),
+              f"device_trace lists no B2 kernel: {sorted(kernels)}")
+    ledger = {key: telemetry().perf.dump()[key]
+              for key in ("compile_cache_hits", "compile_cache_misses")}
+    autopsy.store()               # its counters ride the prometheus text
+
+    launches: dict = {}
+    walls: dict = {}
+    samples: list = []            # (t, window, flush_bytes)
+    decisions: list = []
+    stop = threading.Event()
+    t0 = time.perf_counter()
+
+    def engine():
+        return de._shared_engine
+
+    sampler_errs: list = []
+
+    def sampler():
+        try:
+            while not stop.wait(0.1):
+                eng = engine()
+                conf = g_conf()
+                for knob in TUNER_KNOBS:
+                    val = conf[knob.name]
+                    check(knob.lo <= val <= knob.hi,
+                          f"knob {knob.name} = {val} out of bounds")
+                if eng is not None:
+                    point = (round(time.perf_counter() - t0, 2),
+                             eng._window, eng._flush_bytes)
+                    if not samples or samples[-1][1:] != point[1:]:
+                        samples.append(point)
+        except BaseException as exc:       # re-raised after the join
+            sampler_errs.append(exc)
+
+    def counted(label, fn):
+        gf_cuda.reset_launches()
+        crc32c_cuda.reset_launches()
+        try:
+            walls[label] = fn()
+        finally:
+            launches[label] = {"gf_matvec": gf_cuda.launches,
+                               "crc32c_rows": crc32c_cuda.launches}
+
+    old_env = os.environ.get("CEPH_TPU_TUNER")
+    os.environ["CEPH_TPU_TUNER"] = "1"
+    watcher = threading.Thread(target=sampler, daemon=True)
+    try:
+        t_boot = time.perf_counter()
+        with _heartbeat_knobs(g_conf(), CLUSTER_GRACE), \
+                MiniCluster(n_osds=CLUSTER_OSDS) as cluster:
+            cluster.create_ec_pool("rbd_ec", k=K, m=M, plugin="isa",
+                                   technique="reed_sol_van",
+                                   pg_num=CLUSTER_PG_NUM, backend=backend)
+            mgr = cluster.start_mgr()
+            boot_s = time.perf_counter() - t_boot
+            check(tuple(mgr.modules) == DEFAULT_MODULES,
+                  f"mgr modules {list(mgr.modules)}")
+            tuner = mgr.modules["tuner"].engine
+            check(tuner is not None, "tuner off with CEPH_TPU_TUNER=1")
+            sensors = tuner._sensors = _RecordedSensors(tuner._sensors)
+            real_decide = tuner._decide
+
+            def decide(kind, **fields):
+                # did a push of an engine knob land on the engine?
+                rec = real_decide(kind, **fields)
+                attr = ENGINE_KNOBS.get(rec.get("knob"))
+                eng = engine()
+                landed = None
+                if attr is not None and kind in ("step", "revert") \
+                        and eng is not None:
+                    landed = getattr(eng, attr) == rec["to"]
+                decisions.append({
+                    "t": round(time.perf_counter() - t0, 2),
+                    "kind": kind, "rule": rec.get("rule"),
+                    "knob": rec.get("knob"), "from": rec.get("from"),
+                    "to": rec.get("to"), "landed": landed})
+                return rec
+            tuner._decide = decide
+            code, msg, _ = mgr.modules["dashboard"].handle_command(
+                {"prefix": "on"})
+            check(code == 0, f"dashboard on: {msg}")
+            url = f"http://127.0.0.1:{mgr.modules['dashboard'].port}/"
+            watcher.start()
+            spec = LoadSpec(n_keys=n_keys, obj_size=OBJECT_BYTES,
+                            read_frac=SERVING_READ_FRAC,
+                            concurrency=CLUSTER_CLIENTS,
+                            phase_seconds=interval_s, seed=SEED,
+                            zipf_theta=SERVING_THETA, op_timeout=600.0)
+            gen = LoadGen(cluster, "rbd_ec", spec)
+            gen.health.evaluate(gen._status(), cluster.mon.osdmap)
+            counted("write", lambda: _preload_threaded(gen, CLUSTER_CLIENTS))
+            api: dict = {}
+
+            def fetch_api():
+                time.sleep(interval_s / 2)
+                try:
+                    api.update(_api_brief(url))
+                except Exception as exc:     # reported by the check below
+                    api["error"] = repr(exc)
+            loads = []
+            for i in range(intervals):
+                fetcher = threading.Thread(target=fetch_api) \
+                    if i == min(1, intervals - 1) else None
+                if fetcher is not None:
+                    fetcher.start()
+                counted(f"load {i}", lambda i=i: loads.append(
+                    gen._run_phase(f"healthy {i}", interval_s)))
+                if fetcher is not None:
+                    fetcher.join()
+            check("error" not in api and api, f"dashboard API: {api}")
+            verify = _verify_threaded(gen, CLUSTER_CLIENTS)
+            for key in ("lost_acked", "wrong_bytes", "corruptions"):
+                check(verify[key] == [],
+                      f"mgr phase reads: {key} {verify[key][:3]}")
+            kept = _kept_tree_with(mgr.modules["trace"], "kernel_dispatch")
+            check(kept is not None, "no archived trace with a "
+                  "kernel_dispatch span")
+            prom = [line for line in prometheus.render_text().splitlines()
+                    if not line.startswith("#")
+                    and ("tuner_" in line or "autopsy_" in line)]
+            history = tuner.history_dump()
+            eng = engine()
+            stats = dict(eng.stats)
+            knobs_live = {k: getattr(eng, a) for k, a in ENGINE_KNOBS.items()}
+            mgr.stop()
+            cluster.mgr = None
+            g_conf().set_mon_layer({})
+            restored = {k: getattr(eng, a) for k, a in ENGINE_KNOBS.items()}
+            defaults = {k: g_conf().schema.get(k).default
+                        for k in ENGINE_KNOBS}
+            check(restored == defaults,
+                  f"engine knobs not restored: {restored} != {defaults}")
+            stop.set()
+            watcher.join()
+            if sampler_errs:
+                raise sampler_errs[0]
+    finally:
+        stop.set()
+        if watcher.is_alive():
+            watcher.join()
+        g_conf().set_mon_layer({})
+        if old_env is None:
+            os.environ.pop("CEPH_TPU_TUNER", None)
+        else:
+            os.environ["CEPH_TPU_TUNER"] = old_env
+
+    # each step's fate: the judgment that followed it on its knob
+    for i, d in enumerate(decisions):
+        if d["kind"] == "step":
+            judged = next((j["kind"] for j in decisions[i + 1:]
+                           if j["knob"] == d["knob"]
+                           and j["kind"] in ("confirm", "revert")), None)
+            d["outcome"] = {"confirm": "kept", "revert": "reverted"}.get(
+                judged, "pending")
+    engine_steps = [d for d in decisions if d["landed"] is not None]
+    check(all(d["landed"] for d in engine_steps),
+          f"an engine-knob push did not land: {engine_steps}")
+    check(any(d["kind"] == "step" for d in engine_steps),
+          f"no engine-knob step landed: {decisions}")
+    check(stats["errors"] == 0 and stats["decode_errors"] == 0,
+          f"engine errors: {stats}")
+    if on_card:
+        w = launches["write"]
+        check(w["gf_matvec"] > 0 and w["crc32c_rows"] > 0,
+              f"write launches {w}")
+    out = {"phase": "mgr", "card": smi, "backend": backend,
+           "profile": "isa reed_sol_van k=8 m=3, stripe unit 4096",
+           "osds": CLUSTER_OSDS, "pg_num": CLUSTER_PG_NUM,
+           "keys": n_keys, "object_bytes": OBJECT_BYTES,
+           "clients": CLUSTER_CLIENTS, "modules": list(DEFAULT_MODULES),
+           "tuner": {k: g_conf()[k] for k in
+                     ("tuner_tick_period", "tuner_cooldown_s",
+                      "tuner_hysteresis_ticks")},
+           "boot_s": boot_s, "write_s": walls["write"],
+           "write_GBps": n_keys * OBJECT_BYTES / 1e9 / walls["write"],
+           "intervals": [{key: r[key] for key in
+                          ("phase", "seconds", "ops", "ops_per_s", "MBps",
+                           "p50_ms", "p99_ms", "errors")}
+                         for r in loads],
+           "verify": {k: verify[k] if not isinstance(verify[k], list)
+                      else len(verify[k]) for k in verify},
+           "decisions": decisions,
+           "tuner_history_kinds": [d["kind"] for d in history],
+           "sensors": sensors.brief(),
+           "engine_knobs_over_time": samples,
+           "engine_knobs_live": knobs_live, "engine_knobs_restored": restored,
+           "window_max_depth": stats["window_max_depth"],
+           "window_slot_flushes": stats["window_slot_flushes"],
+           "max_inflight_depth": stats["max_inflight_depth"],
+           "flushes": stats["flushes"], "ops": stats["ops"],
+           "ops_per_flush": stats["ops"] / max(stats["flushes"], 1),
+           "launches": launches, "traced_burst": traced,
+           "api": api, "kept_trace": kept, "prometheus": prom,
+           "build_ledger": ledger, "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+#: the arguments that run phases 5c, 5d, 5e, 5f and 5g alone (each the
+#: child process of :func:`phase_in_child`)
 CLUSTER_CHILD_ARG = "--cluster-phase"
 SCRUB_CHILD_ARG = "--scrub-phase"
 CRIMSON_CHILD_ARG = "--crimson-phase"
 SERVING_CHILD_ARG = "--serving-phase"
+MGR_CHILD_ARG = "--mgr-phase"
 
 
 def phase_in_child(arg: str, phase: str, timeout: float = 900) -> dict:
@@ -2935,7 +3382,7 @@ def main() -> int:
     # -- 13. the engine under torch.profiler ------------------------------
     engine_profile_phase(dev, codec, sinfo)
 
-    # -- 5c-5f. the cluster phases, each in a child process on the card,
+    # -- 5c-5g. the cluster phases, each in a child process on the card,
     # after every profiler session of this process: sessions after a
     # cluster child have come back empty (phase 8) --------------------------
     # 5c. the OSD chain: a MiniCluster pool on the card
@@ -2948,6 +3395,13 @@ def main() -> int:
     serving = phase_in_child(SERVING_CHILD_ARG, "serving")
     serving_launches = {"preload": serving["preload"]} | {
         p["phase"]: p["launches"] for p in serving["phases"]}
+    # 5g. the mgr's default modules with the closed-loop tuner live
+    mgr = phase_in_child(MGR_CHILD_ARG, "mgr")
+    check(mgr["build_ledger"]["compile_cache_misses"] == 0 and
+          mgr["build_ledger"]["compile_cache_hits"] > 0,
+          f"5g ran nvcc for a library phase 2 built: {mgr['build_ledger']}")
+    mgr_launches = mgr["launches"] | {
+        "traced_burst": mgr["traced_burst"]["launches"]}
     # 5d. deep scrub over BlockStore
     scrub_launches = phase_in_child(SCRUB_CHILD_ARG, "scrub")["launches"]
 
@@ -2969,6 +3423,8 @@ def main() -> int:
                               in crimson["launches"].items()},
          "serving_launches": {step: n["gf_matvec"] for step, n
                               in serving_launches.items()},
+         "mgr_launches": {step: n["gf_matvec"] for step, n
+                          in mgr_launches.items()},
          "scrub_launches": {step: n["gf_matvec"] for step, n
                             in scrub_launches.items()},
          "decode": {label: {key: timings[label][key] for key in
@@ -2990,6 +3446,8 @@ def main() -> int:
                               in crimson["launches"].items()},
          "serving_launches": {step: n["crc32c_rows"] for step, n
                               in serving_launches.items()},
+         "mgr_launches": {step: n["crc32c_rows"] for step, n
+                          in mgr_launches.items()},
          "scrub_launches": {step: n["crc32c_rows"] for step, n
                             in scrub_launches.items()}},
     ] + clay + [
@@ -3014,4 +3472,6 @@ if __name__ == "__main__":
         raise SystemExit(child_main(crimson_phase))
     if SERVING_CHILD_ARG in sys.argv[1:]:
         raise SystemExit(child_main(serving_phase))
+    if MGR_CHILD_ARG in sys.argv[1:]:
+        raise SystemExit(child_main(mgr_phase))
     raise SystemExit(main())

@@ -15,8 +15,11 @@ and must refuse what it does not take. The deep-scrub verify on the card
 ``backend=cuda`` pool over BlockStore must convict and repair silent
 flips. A crimson cluster and a cephx cluster write and read a
 ``backend=cuda`` pool through B1 and B2, and the load generator's healthy
-phase runs on the card with an empty durability sweep. Every test here
-needs an NVIDIA GPU and skips without one.
+phase runs on the card with an empty durability sweep. The engine follows
+window and flush-threshold pushes through the config mid-burst with
+bytes equal to the plain versions, ``device_trace`` names B1 and B2, and a
+second process counts the built kernel libraries as build-ledger hits.
+Every test here needs an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -631,3 +634,156 @@ def test_deep_scrub_on_cuda_blockstore(cuda, tmp_path):
             assert io.read(oid) == pay
         stats = [o.scrub_engine().stats for o in cluster.osds.values()]
         assert sum(s["device_errors"] for s in stats) == 0, stats
+
+
+def _pushed_burst(eng, codec, sinfo, ops, pushes, producers=4):
+    """Stage ``ops`` in ``len(pushes)`` rounds from ``producers`` threads
+    (thread t: the round's ops t, t+producers, ... under key t), applying
+    round r's ``(option, value)`` pushes through the ``mon`` config layer
+    before it, while earlier rounds' flushes are still in flight. Returns
+    {op: (shards, crcs, err)}."""
+    from ceph_tpu_torch.utils.config import g_conf
+    out = {}
+    lock, done = threading.Lock(), threading.Event()
+    per_round = len(ops) // len(pushes)
+    for r, push in enumerate(pushes):
+        for option, value in push:
+            g_conf().set(option, value, source="mon")
+        idx = range(r * per_round, (r + 1) * per_round)
+
+        def producer(t, idx=idx):
+            for i in idx[t::producers]:
+                def cont(s, c, e, i=i):
+                    with lock:
+                        out[i] = (s, c, e)
+                        if len(out) == len(ops):
+                            done.set()
+                eng.stage_encode(t, codec, sinfo, ops[i], cont)
+        threads = [threading.Thread(target=producer, args=(t,))
+                   for t in range(producers)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    assert done.wait(300), len(out)
+    return out
+
+
+#: engine_window 3 -> 1 -> 5 and engine_flush_bytes 64 MiB -> 1 MiB,
+#: pushed through the mon layer between staging rounds
+KNOB_PUSHES = ((), (("engine_window", 1),),
+               (("engine_flush_bytes", 1 << 20),), (("engine_window", 5),))
+
+
+def test_engine_knob_pushes_mid_burst_on_cuda_match_plain(cuda, monkeypatch):
+    """A 4-thread burst into an engine whose window and flush threshold
+    follow the config: the window is pushed 3 -> 1 -> 5 and the flush
+    threshold 64 MiB -> 1 MiB while flushes are in flight. Every op's
+    shards and linear crcs equal the CPU flush's (tolerance 0), the
+    engine ends at the pushed values, and launches ran at more than one
+    window."""
+    from ceph_tpu_torch.osd.device_engine import DeviceEncodeEngine
+    from ceph_tpu_torch.utils.config import g_conf
+    for env in ("CEPH_TPU_ENGINE_WINDOW", "CEPH_TPU_ENGINE_FLUSH_BYTES"):
+        monkeypatch.delenv(env, raising=False)
+    profile = {"k": "8", "m": "3", "technique": "reed_sol_van"}
+    on_card = instance().factory("isa", profile, device=cuda)
+    on_cpu = instance().factory("isa", profile, device="cpu")
+    sinfo = ec_util.StripeInfo(stripe_width=8 * 4096, chunk_size=4096)
+    ops = [_bytes(300 + i, 8 * sinfo.stripe_width) for i in range(64)]
+    eng = DeviceEncodeEngine(lambda key, fn: fn(), host_flush_bytes=0)
+    try:
+        assert (eng._window, eng._flush_bytes) == (3, 64 << 20)
+        out = _pushed_burst(eng, on_card, sinfo, ops, KNOB_PUSHES)
+        assert (eng._window, eng._flush_bytes) == (5, 1 << 20)
+    finally:
+        eng.stop()
+        g_conf().set_mon_layer({})
+    stats = eng.stats
+    assert stats["errors"] == stats["host_flushes"] == 0, stats
+    assert len({k.split(":")[0]
+                for k in stats["window_slot_flushes"]}) >= 2, stats
+    for i, buf in enumerate(ops):
+        b = ec_util.StripeBatcher(sinfo, on_cpu)
+        b.append(i, buf)
+        (_, wshards, wcrcs), = b.flush(with_crcs=True)
+        shards, crcs, err = out[i]
+        assert err is None and crcs == wcrcs, i
+        for pos in range(11):
+            assert np.array_equal(shards[pos], wshards[pos]), (i, pos)
+
+
+def test_device_trace_names_b1_and_b2(cuda, tmp_path):
+    """``utils/tracepoints.device_trace`` around a 3-flush engine burst
+    writes a Chrome trace and lists B1's and B2's kernels; a second
+    session inside it is refused."""
+    from ceph_tpu_torch.osd.device_engine import DeviceEncodeEngine
+    from ceph_tpu_torch.utils.tracepoints import device_trace
+    profile = {"k": "8", "m": "3", "technique": "reed_sol_van"}
+    on_card = instance().factory("isa", profile, device=cuda)
+    sinfo = ec_util.StripeInfo(stripe_width=8 * 4096, chunk_size=4096)
+    ops = [_bytes(400 + i, 2 * sinfo.stripe_width) for i in range(24)]
+    eng = DeviceEncodeEngine(lambda key, fn: fn(),
+                             flush_bytes=16 * sinfo.stripe_width,
+                             window=3, host_flush_bytes=0)
+    try:
+        with device_trace(str(tmp_path)) as trace:
+            with pytest.raises(RuntimeError, match="already open"):
+                with device_trace(str(tmp_path)):
+                    pass
+            _held_burst(eng, on_card, sinfo, ops)
+    finally:
+        eng.stop()
+    names = trace.kernel_names()
+    assert any("gf_matvec_kernel" in n for n in names), names
+    assert any("crc32c_rows_kernel" in n for n in names), names
+    assert trace.path and (tmp_path / trace.path.split("/")[-1]).stat() \
+        .st_size > 0
+
+
+_LEDGER_CHILD = """
+import json
+from ceph_tpu_torch.ops import cuda_build
+from ceph_tpu_torch.utils import compile_cache
+from ceph_tpu_torch.utils.device_telemetry import telemetry
+cuda_build.load("gf_matvec")
+cuda_build.load("crc32c_rows")
+c = telemetry().perf.dump()
+print(json.dumps({"hits": c["compile_cache_hits"],
+                  "misses": c["compile_cache_misses"],
+                  "ledger": compile_cache.ledger()}))
+"""
+
+
+def test_second_process_counts_build_hits(cuda, tmp_path):
+    """With B1's and B2's libraries built, a second process that loads
+    them counts two build-ledger hits and no miss, and the ledger file
+    records them; with ``CEPH_TPU_COMPILE_CACHE=0`` it loads them the
+    same and counts nothing."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    from ceph_tpu_torch.ops import cuda_build
+    cuda_build.build_all(["gf_matvec", "crc32c_rows"])
+    root = Path(__file__).resolve().parents[1]
+
+    def child(**env):
+        proc = subprocess.run(
+            [sys.executable, "-c", _LEDGER_CHILD], cwd=root,
+            env={**os.environ, "PYTHONPATH": str(root), **env},
+            capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+
+    got = child(CEPH_TPU_COMPILE_CACHE_DIR=str(tmp_path))
+    assert (got["hits"], got["misses"]) == (2, 0), got
+    kernels = sorted(e["kernel"] for e in got["ledger"].values())
+    assert kernels == ["crc32c_rows", "gf_matvec"], got
+    on_disk = json.loads((tmp_path / "builds.json").read_text())
+    assert all(e["hits"] == 1 for e in on_disk.values()), on_disk
+    off = child(CEPH_TPU_COMPILE_CACHE="0",
+                CEPH_TPU_COMPILE_CACHE_DIR=str(tmp_path / "off"))
+    assert (off["hits"], off["misses"], off["ledger"]) == (0, 0, {}), off
+    assert not (tmp_path / "off").exists()

@@ -3,7 +3,9 @@
 Every test process imports ``jax`` already (tests/conftest.py), so this is
 checked statically: an AST scan of every module under ``ceph_tpu_torch/``
 and of ``chip_smoke.py`` for imports of ``jax`` or ``ceph_tpu``
-(``ceph_tpu_torch`` itself is allowed).
+(``ceph_tpu_torch`` itself is allowed). ``import_module`` / ``__import__``
+calls count with a constant argument or an f-string's leading constant
+(the mgr loads its modules as ``f"ceph_tpu_torch.mgr.{name}"``).
 """
 
 import ast
@@ -17,6 +19,17 @@ PORT_FILES = sorted((ROOT / "ceph_tpu_torch").rglob("*.py")) + \
 FORBIDDEN = ("jax", "jaxlib", "ceph_tpu")
 
 
+def _leading_constant(arg) -> str | None:
+    """The module name an import call's argument starts with: the whole
+    constant, or an f-string's leading constant part."""
+    if isinstance(arg, ast.Constant):
+        return str(arg.value)
+    if isinstance(arg, ast.JoinedStr) and arg.values and \
+            isinstance(arg.values[0], ast.Constant):
+        return str(arg.values[0].value)
+    return None
+
+
 def _imported_modules(path: Path) -> list[str]:
     tree = ast.parse(path.read_text(), filename=str(path))
     names = []
@@ -27,9 +40,10 @@ def _imported_modules(path: Path) -> list[str]:
             names.append(node.module or "")
         elif isinstance(node, ast.Call) and \
                 getattr(node.func, "attr", getattr(node.func, "id", "")) in \
-                ("import_module", "__import__") and node.args and \
-                isinstance(node.args[0], ast.Constant):
-            names.append(str(node.args[0].value))
+                ("import_module", "__import__") and node.args:
+            name = _leading_constant(node.args[0])
+            if name is not None:
+                names.append(name)
     return names
 
 
@@ -81,7 +95,22 @@ def test_scan_covers_the_port():
                  "ceph_tpu_torch/mgr/health.py",
                  "ceph_tpu_torch/tools/rados_cli.py",
                  "ceph_tpu_torch/bench/cluster_bench.py",
-                 "ceph_tpu_torch/bench/load_gen.py"):
+                 "ceph_tpu_torch/bench/load_gen.py",
+                 "ceph_tpu_torch/utils/knobs.py",
+                 "ceph_tpu_torch/utils/tracepoints.py",
+                 "ceph_tpu_torch/utils/autopsy.py",
+                 "ceph_tpu_torch/utils/prometheus.py",
+                 "ceph_tpu_torch/utils/compile_cache.py",
+                 "ceph_tpu_torch/parallel/placement.py",
+                 "ceph_tpu_torch/tools/bench_trend.py",
+                 "ceph_tpu_torch/tools/trace_export.py",
+                 "ceph_tpu_torch/bench/tuner_sim.py",
+                 "ceph_tpu_torch/mgr/tuner.py",
+                 "ceph_tpu_torch/mgr/trace.py",
+                 "ceph_tpu_torch/mgr/balancer.py",
+                 "ceph_tpu_torch/mgr/progress.py",
+                 "ceph_tpu_torch/mgr/telemetry.py",
+                 "ceph_tpu_torch/mgr/dashboard.py"):
         assert must in rel
 
 
@@ -96,6 +125,10 @@ def test_scanner_flags_forbidden_imports(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import jax.numpy as jnp\nfrom ceph_tpu.ops import gf256\n"
                  "from ceph_tpu_torch.ops import gf256 as ok\n"
-                 "importlib.import_module('ceph_tpu.models')\n")
+                 "importlib.import_module('ceph_tpu.models')\n"
+                 "importlib.import_module(f'ceph_tpu.mgr.{name}')\n"
+                 "importlib.import_module(f'ceph_tpu_torch.mgr.{name}')\n"
+                 "importlib.import_module(f'{pkg}.mgr')\n")
     bad = [n for n in _imported_modules(f) if _forbidden(n)]
-    assert bad == ["jax.numpy", "ceph_tpu.ops", "ceph_tpu.models"]
+    assert bad == ["jax.numpy", "ceph_tpu.ops", "ceph_tpu.models",
+                   "ceph_tpu.mgr."]

@@ -8,11 +8,10 @@ thrasher and health engine against the reference's, on the CPU.
   ``tests/test_thrash.py`` (1) on port clusters (3-4 OSDs, k=2,m=1;
   ``backend=torch`` where the reference names ``jax``). The reference
   marks the two long thrash tests slow, and so does the port. The
-  reference's prometheus exposition (``utils/prometheus``) is not ported;
-  the mid-burst kill checks the same counters on the OSDs' perf
-  collections instead.
-- The ``HealthEngine`` cases of ``tests/test_health.py`` that need no
-  unported mgr module (the flight recorder, transitions and the bundle,
+  mid-burst kill checks the counters on the OSDs' perf collections (the
+  reference reads them through its prometheus exposition).
+- The ``HealthEngine`` cases of ``tests/test_health.py`` (the flight
+  recorder, transitions and the bundle,
   the device checks, the MiniCluster scenario through a mgr with the
   health module), and the same status and osdmap raising the same checks
   in both packages' engines.
@@ -567,11 +566,12 @@ def test_scripted_transitions_and_err_bundle_fires_once():
     assert ("SCRIPTED", H.ERR, H.OK) in hist
     bundle = eng.last_bundle
     for key in ("report", "health_history", "log_recent", "ops",
-                "device", "compile_cache", "autopsies", "tuner"):
+                "device", "compile_cache", "autopsies"):
         assert key in bundle, key
-    # the unported sources say so in their sections
-    assert bundle["compile_cache"] == {"error": H.NOT_PORTED}
-    assert bundle["tuner"] == {"error": H.NOT_PORTED}
+    # the build ledger's section; the tuner's rides only while a tuner
+    # is live (none here), as in the reference
+    assert set(bundle["compile_cache"]) == {"dir", "ledger"}
+    assert "tuner" not in bundle
     json.dumps(bundle, default=str)
 
 
@@ -698,13 +698,17 @@ def test_health_checks_equal_reference(n_osds, down, degraded, by_state):
 
 
 def test_mgr_boots_with_ported_modules_and_refuses_the_rest():
-    """``start_mgr`` boots a mgr whose modules are all ported and raises
-    NotImplementedError naming the others; the default set raises."""
+    """``start_mgr`` with no module list boots the reference's default
+    set, tuner last; a module that does not exist is refused (the import
+    fails and the mgr's mon session is closed)."""
+    from ceph_tpu_torch.mgr.mgr import DEFAULT_MODULES
     with MiniCluster(n_osds=1) as c:
-        with pytest.raises(NotImplementedError, match="balancer"):
-            c.start_mgr()
-        with pytest.raises(NotImplementedError, match="tuner"):
-            c.start_mgr(modules=("health", "tuner"))
+        with pytest.raises(ModuleNotFoundError, match="no_such_module"):
+            c.start_mgr(modules=("health", "no_such_module"))
+        mgr = c.start_mgr()
+        assert tuple(mgr.modules) == DEFAULT_MODULES
+        assert list(mgr.modules)[-1] == "tuner"
+        mgr.stop()
         mgr = c.start_mgr(modules=("health",))
         assert sorted(mgr.modules) == ["health"]
 
