@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import threading
 
-from ceph_tpu_torch.utils.noop_hooks import make_lock
+from ceph_tpu_torch.analysis.lock_witness import make_lock
 import time
 
 from ceph_tpu_torch.parallel import messages as M

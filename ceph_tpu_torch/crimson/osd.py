@@ -83,7 +83,7 @@ from ceph_tpu_torch.store.object_store import (
 from ceph_tpu_torch.utils.config import g_conf
 from ceph_tpu_torch.utils.dispatch_telemetry import telemetry as _dsp_tel
 from ceph_tpu_torch.utils import flow_telemetry as _flows
-from ceph_tpu_torch.utils.noop_hooks import make_lock
+from ceph_tpu_torch.analysis.lock_witness import make_lock
 from ceph_tpu_torch.utils.dout import Dout
 from ceph_tpu_torch.utils.perf_counters import collection
 

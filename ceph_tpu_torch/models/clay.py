@@ -112,7 +112,8 @@ class ErasureCodeClay(ErasureCode):
                                 else "reed_sol_van")
         backend = str(profile.get("backend", "auto"))
         try:
-            backend_mod.resolve_name(backend, self.device)
+            self._resolved = (backend,
+                              backend_mod.resolve_name(backend, self.device))
         except KeyError as exc:
             raise ErasureCodeError(str(exc)) from exc
         self._k, self._m, self.d = k, m, d
@@ -153,7 +154,12 @@ class ErasureCodeClay(ErasureCode):
 
     @property
     def resolved_backend(self) -> str:
-        return backend_mod.resolve_name(self.backend, self.device)
+        """``backend`` resolved when it was set: ``auto`` reads the
+        ``erasure_code_backend`` option then, not on every flush."""
+        if self._resolved[0] != self.backend:
+            self._resolved = (self.backend, backend_mod.resolve_name(
+                self.backend, self.device))
+        return self._resolved[1]
 
     # -- geometry ----------------------------------------------------------
 

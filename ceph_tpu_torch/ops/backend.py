@@ -17,7 +17,9 @@ with ``data`` a uint8 torch tensor and the result on its device. Backends:
 - ``torch``: the plain bit-sliced version (ops/gf_torch.py);
 - ``numpy``: the gf256 host oracle.
 
-``auto`` is ``cuda`` when the codec's device is CUDA, else ``torch``.
+``auto`` is the backend the ``erasure_code_backend`` option names, as in
+the reference; when that option is ``auto`` too, ``cuda`` for a codec on
+a CUDA device, else ``torch``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch.ops import gf256, gf_cuda, gf_torch
+from ceph_tpu_torch.utils.config import g_conf
 
 
 def _numpy(mat: np.ndarray, data: torch.Tensor) -> torch.Tensor:
@@ -53,6 +56,8 @@ DEVICE_BACKENDS = frozenset({"cuda", "torch"})
 
 def resolve_name(name: str, device) -> str:
     """The concrete backend ``name`` stands for on ``device``."""
+    if name == "auto":
+        name = g_conf()["erasure_code_backend"]
     if name == "auto":
         return "cuda" if torch.device(device).type == "cuda" else "torch"
     if name not in BACKENDS:

@@ -53,9 +53,9 @@ through the ``mon`` layer land as one attribute write — never a per-flush
 config read; ``stop()`` detaches them.
 
 Not ported yet: the multi-device mesh route (ROADMAP A.5: the placement
-slot is always 0 and ``ec_util`` raises on a mesh). The lock witness is
-the do-nothing stand-in of ``utils/noop_hooks`` (A.6); the other host
-hooks are the port's copies of the reference's modules.
+slot is always 0 and ``ec_util`` raises on a mesh). The engine's locks
+are the lock witness's named seams (``analysis/lock_witness``); the
+other host hooks are the port's copies of the reference's modules.
 """
 
 from __future__ import annotations
@@ -81,7 +81,7 @@ from ceph_tpu_torch.utils.config import g_conf
 from ceph_tpu_torch.utils import flow_telemetry as _flows
 from ceph_tpu_torch.utils.dout import Dout
 from ceph_tpu_torch.utils import tracepoints as _tracepoints
-from ceph_tpu_torch.utils.noop_hooks import make_condition, make_lock
+from ceph_tpu_torch.analysis.lock_witness import make_condition, make_lock
 from ceph_tpu_torch.utils.tracing import NOOP
 
 log = Dout("osd")

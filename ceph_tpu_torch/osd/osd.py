@@ -28,7 +28,7 @@ import json
 import threading
 import time
 
-from ceph_tpu_torch.utils.noop_hooks import (
+from ceph_tpu_torch.analysis.lock_witness import (
     make_condition, make_lock, make_rlock)
 from ceph_tpu_torch.osd import ec_util
 from ceph_tpu_torch.osd.ec_backend import ECBackend

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import threading
 
-from ceph_tpu_torch.utils.noop_hooks import make_rlock
+from ceph_tpu_torch.analysis.lock_witness import make_rlock
 from dataclasses import dataclass
 
 from ceph_tpu_torch.store.object_store import (

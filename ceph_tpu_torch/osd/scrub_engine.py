@@ -66,7 +66,7 @@ from ceph_tpu_torch.osd.pg_backend import SUBOP_TIMEOUT, SubOpWait
 from ceph_tpu_torch.parallel import messages as M
 from ceph_tpu_torch.utils.device_telemetry import telemetry as _telemetry
 from ceph_tpu_torch.utils.dout import Dout
-from ceph_tpu_torch.utils.noop_hooks import make_lock
+from ceph_tpu_torch.analysis.lock_witness import make_lock
 
 log = Dout("osd")
 

@@ -32,7 +32,7 @@ from __future__ import annotations
 import json
 import threading
 
-from ceph_tpu_torch.utils.noop_hooks import make_lock
+from ceph_tpu_torch.analysis.lock_witness import make_lock
 import time
 from ceph_tpu_torch.utils.workerpool import DaemonPool
 

@@ -35,7 +35,7 @@ import threading
 import time
 from typing import Callable
 
-from ceph_tpu_torch.utils.noop_hooks import make_lock
+from ceph_tpu_torch.analysis.lock_witness import make_lock
 from ceph_tpu_torch.parallel.messages import (MECSubWriteBatch, Message,
                                         MOSDOpBatch, decode_message)
 from ceph_tpu_torch.utils import checksum

@@ -50,7 +50,7 @@ from __future__ import annotations
 import json
 import threading
 
-from ceph_tpu_torch.utils.noop_hooks import make_rlock
+from ceph_tpu_torch.analysis.lock_witness import make_rlock
 import time
 
 from ceph_tpu_torch.models import registry as ec_registry

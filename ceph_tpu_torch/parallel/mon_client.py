@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import threading
 
-from ceph_tpu_torch.utils.noop_hooks import make_condition, make_lock
+from ceph_tpu_torch.analysis.lock_witness import make_condition, make_lock
 import time
 from typing import Callable
 

@@ -10,8 +10,9 @@ fires only with more than one slot, so on one card it stays inert).
 
 from __future__ import annotations
 
-import threading
 import zlib
+
+from ceph_tpu_torch.analysis.lock_witness import make_lock
 
 
 def stable_hash(key) -> int:
@@ -31,7 +32,7 @@ def stable_hash(key) -> int:
 # PlacementMap (ROADMAP A.5 here); clearing the weights restores the
 # hash-uniform map.
 
-_weights_lock = threading.Lock()
+_weights_lock = make_lock("placement.weights")
 _slot_weights: dict[int, float] | None = None
 
 

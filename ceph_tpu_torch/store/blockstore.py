@@ -42,7 +42,7 @@ from ceph_tpu_torch.store.object_store import (
 from ceph_tpu_torch.utils import checksum
 from ceph_tpu_torch.utils import tracepoints as _tracepoints
 from ceph_tpu_torch.utils.encoding import Decoder, Encoder
-from ceph_tpu_torch.utils.noop_hooks import make_lock
+from ceph_tpu_torch.analysis.lock_witness import make_lock
 
 _TP_QUEUE_TXN = _tracepoints.provider("objectstore").point(
     "queue_transaction", "ops")

@@ -35,7 +35,7 @@ from ceph_tpu_torch.store.object_store import (
     ObjectStore,
     Transaction,
 )
-from ceph_tpu_torch.utils.noop_hooks import make_rlock
+from ceph_tpu_torch.analysis.lock_witness import make_rlock
 
 #: data stripe record size (kstore_default_stripe_size is 64K in the
 #: reference; smaller here keeps partial-write RMW cheap in tests)

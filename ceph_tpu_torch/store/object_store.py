@@ -16,7 +16,7 @@ from __future__ import annotations
 
 from typing import Callable, Iterator
 
-from ceph_tpu_torch.utils.noop_hooks import make_condition, make_lock
+from ceph_tpu_torch.analysis.lock_witness import make_condition, make_lock
 from ceph_tpu_torch.utils.encoding import Decoder, Encoder
 
 

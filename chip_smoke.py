@@ -96,7 +96,7 @@ Phases, each printing one JSON line:
    limit. Kernel launch counts are zeroed before and read after each
    step. The phase runs in a child process on the same card (this script
    with ``--cluster-phase``), so the cluster's threads stay out of this
-   process's profiler sessions, after phase 13 with 5e, 5f, 5g and 5d;
+   process's profiler sessions, after phase 13 with 5e, 5f, 5g, 5h and 5d;
 5d. scrub: deep scrub on the card over the durable store, 5c's
    deployment on BlockStore (the BlueStore role; its data files in a
    temporary directory under ``build/scrub/``): 12 OSDs, the ISA k=8,m=3
@@ -123,7 +123,7 @@ Phases, each printing one JSON line:
    second, batches and objects a batch, and B1 and B2 launches by step
    (counts zeroed before and read after each step). It runs in a child
    process like 5c (``--scrub-phase``), which takes no profiler session,
-   and it runs last. The cluster children (5c, 5e, 5f, 5g, 5d) run after
+   and it runs last. The cluster children (5c, 5e, 5f, 5g, 5h, 5d) run after
    phase 13: profiler sessions in this process after a cluster child
    have come back empty (phase 8). The ``scrub_times`` line, in
    phase 5, gives the verify program's events and profiler device ms at
@@ -189,6 +189,29 @@ Phases, each printing one JSON line:
    ``tuner_*`` and ``autopsy_*`` samples and the build ledger's hits and
    misses (the main process requires no miss: phase 2 built every
    library). Runs in a child process (``--mgr-phase``);
+5h. witness: the port's lock witness and lock timing
+   (``ceph_tpu_torch/analysis/lock_witness``) armed in a child process
+   (``--witness-phase``) before the port's modules are imported, so every
+   lock they and the deployment build (module-level ones too) is named,
+   tracked and timed; then 5c's
+   deployment (12 threaded OSDs on memstore, the ISA k=8,m=3
+   ``backend=cuda`` pool, ``pg_num=32``, one shared engine, a 20 s grace):
+   128 objects of 1 MiB written from 8 client threads through B1 + B2; a
+   planted probe, ``torch.cuda.synchronize()`` under
+   ``make_lock("smoke.probe")``; the highest OSD killed (the ``fast_death``
+   knobs until the mon marks it down), 32 objects read degraded, the OSD
+   revived and ``wait_for_clean``; every object read back and 16 objects'
+   shards checked against the host oracles. Checked: the probe shows up as
+   a ``device_barrier`` finding on its lock (the hook fires on real CUDA;
+   the witness sees explicit waits on the card, not a copy to the host);
+   no other finding outside the ``witness`` section of
+   ``analysis/baseline.json``; a lock-order graph with at least one edge;
+   B2 launches equal the write's fused flushes. The ``witness`` line
+   prints edges, cycles, findings by kind and lock, the top 5 locks by
+   total wait, by total hold and by longest wait, the top condvar
+   wakeups (``dispatch`` telemetry), the walls and the launches by step;
+   ``witness_vs_cluster`` prints its walls beside 5c's (5h's run with the
+   wrappers on, 5c's without);
 6. Clay kernels against their plain versions on the card, byte-exact: B3
    and B4 over k=8,m=4,d=11, k=4,m=2 and k=4,m=3,d=6 (virtual nodes) at
    ragged L (B3 also at 64 and 32 Ki lanes, its short form; B3 and B4 from
@@ -2032,13 +2055,240 @@ def mgr_phase(smi: str, backend: str = "cuda",
     return out
 
 
-#: the arguments that run phases 5c, 5d, 5e, 5f and 5g alone (each the
-#: child process of :func:`phase_in_child`)
+#: phase 5h: phase 5c's deployment under the lock witness and lock timing:
+#: 128 objects of 1 MiB from 8 client threads, the highest OSD killed, 32
+#: of them read degraded, the OSD revived, every write read back
+WITNESS_OBJECTS = 128
+WITNESS_DEGRADED_READS = 32
+WITNESS_KILLED = CLUSTER_OSDS - 1
+#: the lock the planted probe holds while it waits on the card: its
+#: ``device_barrier`` finding proves the hook fires on real CUDA
+WITNESS_PROBE_LOCK = "smoke.probe"
+
+
+def _top_locks(table: dict, key: str, n: int = 5) -> list:
+    """The ``n`` named locks with the largest ``key`` in a dispatch
+    telemetry lock table, as [name, value, acquisitions] (every
+    outermost acquire reports a wait, blocked or not)."""
+    rows = sorted(table.items(), key=lambda kv: -kv[1][key])[:n]
+    return [[name, row[key], row["waits"]] for name, row in rows
+            if row[key]]
+
+
+def witness_phase(smi: str, backend: str = "cuda",
+                  n_obj: int = WITNESS_OBJECTS, armed: bool = True) -> dict:
+    """Phase 5h: phase 5c's deployment with the port's lock witness and
+    lock timing armed before anything of the port is built (see the
+    module docstring). Fails on an unacknowledged finding, an empty lock
+    graph, a wrong byte, or a planted device barrier the witness did not
+    see. The witness sees explicit waits on the card only
+    (``torch.cuda.synchronize`` and the event and stream waits); a copy
+    from the card to the host (``.cpu()``) waits too, unwitnessed.
+    ``backend="torch"`` runs the plain versions (a rehearsal on the CPU,
+    where no launch is counted and the probe's barrier raises after the
+    hook saw it). ``armed=False`` runs the same steps and checks of the
+    bytes with neither mode on and no probe, the twin that measures what
+    the wrappers cost (``--witness-phase --unarmed``)."""
+    from ceph_tpu_torch.analysis import lock_witness as lw
+    if armed:
+        lw.enable()
+        lw.enable_timing()
+    from ceph_tpu_torch.models import instance
+    from ceph_tpu_torch.ops import crc32c_cuda, gf_cuda
+    from ceph_tpu_torch.qa.cluster import MiniCluster
+    from ceph_tpu_torch.utils.config import g_conf
+    from ceph_tpu_torch.utils.dispatch_telemetry import \
+        telemetry as dispatch_telemetry
+
+    t_phase = time.perf_counter()
+    on_card = backend == "cuda"
+    rng = np.random.default_rng(SEED + 21)
+    data = rng.integers(0, 256, n_obj * OBJECT_BYTES, dtype=np.uint8)
+    pays = {f"obj{i}": data[i * OBJECT_BYTES:(i + 1) * OBJECT_BYTES]
+            .tobytes() for i in range(n_obj)}
+    del data
+    oids = list(pays)
+    degraded = oids[:min(WITNESS_DEGRADED_READS, n_obj)]
+    host_codec = instance().factory(
+        "isa", {"k": str(K), "m": str(M), "technique": "reed_sol_van",
+                "backend": "numpy"}, device="cpu")
+    launches: dict = {}
+    walls: dict = {}
+
+    def step(label, fn):
+        gf_cuda.reset_launches()
+        crc32c_cuda.reset_launches()
+        walls[label] = fn()
+        launches[label] = {"gf_matvec": gf_cuda.launches,
+                           "crc32c_rows": crc32c_cuda.launches}
+
+    def read_back(names, label):
+        def one(i):
+            check(io.read(names[i]) == pays[names[i]],
+                  f"5h {label} read of {names[i]}")
+        return _threaded(one, len(names), CLUSTER_CLIENTS)
+
+    t_boot = time.perf_counter()
+    with _heartbeat_knobs(g_conf(), CLUSTER_GRACE), \
+            MiniCluster(n_osds=CLUSTER_OSDS) as cluster:
+        boot_s = time.perf_counter() - t_boot
+        cluster.create_ec_pool("rbd_ec", k=K, m=M, plugin="isa",
+                               technique="reed_sol_van",
+                               pg_num=CLUSTER_PG_NUM, backend=backend)
+        pool_id = cluster.mon.osdmap.pool_by_name["rbd_ec"]
+        rados = cluster.client()
+        io = rados.open_ioctx("rbd_ec")
+        io.op_timeout = 600.0
+        # lock waits and holds from the first client write on
+        dispatch_telemetry().reset()
+        step("write", lambda: _threaded(
+            lambda i: io.write_full(oids[i], pays[oids[i]]), n_obj,
+            CLUSTER_CLIENTS))
+        handle = _engine_handle(cluster)
+        write_stats = dict(handle.stats)
+        fused = write_stats["flushes"] - write_stats["host_flushes"]
+        if on_card:
+            w = launches["write"]
+            check(w["gf_matvec"] > 0 and w["crc32c_rows"] > 0,
+                  f"5h write launches {w}")
+            check(w["crc32c_rows"] == fused,
+                  f"5h B2 launches {w['crc32c_rows']} != fused flushes "
+                  f"{fused}")
+
+        # the planted probe: a device barrier under a witnessed lock
+        if armed:
+            with lw.make_lock(WITNESS_PROBE_LOCK):
+                if on_card:
+                    torch.cuda.synchronize()
+                else:
+                    with contextlib.suppress(AssertionError, RuntimeError):
+                        torch.cuda.synchronize()
+
+        epoch = cluster.epoch()
+        t0 = time.perf_counter()
+        with _fast_death_kill(cluster, g_conf()):
+            cluster.kill_osd(WITNESS_KILLED)
+            cluster.wait_for_osd_down(WITNESS_KILLED, timeout=60)
+        down_s = time.perf_counter() - t0
+        rados.wait_for_epoch(epoch + 1, timeout=30)
+        before = dict(handle.stats)
+        step("degraded_read", lambda: read_back(degraded, "degraded"))
+        decode_ops = handle.stats["decode_ops"] - before["decode_ops"]
+
+        def recover():
+            t0 = time.perf_counter()
+            cluster.revive_osd(WITNESS_KILLED)
+            cluster.wait_for_osds_up(timeout=60)
+            cluster.wait_for_clean(timeout=600)
+            return time.perf_counter() - t0
+
+        step("recovery", recover)
+        step("final_read", lambda: read_back(oids, "final"))
+        final = dict(handle.stats)
+        check(final["errors"] == 0 and final["decode_errors"] == 0,
+              f"5h engine errors: {final}")
+        osdmap = cluster.mon.osdmap
+        picked, seen = [], set()
+        for oid in oids:
+            ps = osdmap.object_to_pg(pool_id, oid)
+            if ps not in seen:
+                seen.add(ps)
+                picked.append(oid)
+            if len(picked) == CLUSTER_CHECKED:
+                break
+        shards_checked = _check_cluster_shards(cluster, pool_id, picked,
+                                               pays, host_codec)
+        locks = dispatch_telemetry().lock_table(top=1 << 16)["locks"]
+
+    gb = n_obj * OBJECT_BYTES / 1e9
+    out = {"phase": "witness", "card": smi, "backend": backend,
+           "profile": "isa reed_sol_van k=8 m=3, stripe unit 4096",
+           "osds": CLUSTER_OSDS, "pg_num": CLUSTER_PG_NUM,
+           "objects": n_obj, "object_bytes": OBJECT_BYTES,
+           "clients": CLUSTER_CLIENTS, "killed": WITNESS_KILLED,
+           "witness": armed, "timing": armed, "boot_s": boot_s,
+           "write_s": walls["write"], "write_GBps": gb / walls["write"],
+           "down_s": down_s, "degraded_reads": len(degraded),
+           "degraded_read_s": walls["degraded_read"],
+           "degraded_read_GBps": len(degraded) * OBJECT_BYTES / 1e9
+           / walls["degraded_read"],
+           "degraded_decode_ops": decode_ops,
+           "recovery_s": walls["recovery"],
+           "final_read_s": walls["final_read"],
+           "flushes": final["flushes"], "write_flushes":
+           write_stats["flushes"], "write_fused_flushes": fused,
+           "window_depth_max": final["max_inflight_depth"],
+           "launches": launches, "shards_checked": shards_checked}
+    if armed:
+        out.update(_witness_findings(lw, locks))
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def _witness_findings(lw, locks: dict) -> dict:
+    """Phase 5h's report of the armed witness and timing (disarmed
+    here): the lock graph, the findings by kind and lock and the top
+    locks, after the checks on the probe, the graph and the baseline."""
+    rep = lw.report()
+    lw.disable()
+    lw.disable_timing()
+    by_kind: dict = {}
+    for v in rep["blocking"]:
+        kind = by_kind.setdefault(v["kind"], {})
+        kind[v["lock"]] = kind.get(v["lock"], 0) + v["count"]
+    probe = [v for v in rep["blocking"] if v["lock"] == WITNESS_PROBE_LOCK]
+    check(any(v["kind"] == "device_barrier" for v in probe),
+          f"the planted device barrier under {WITNESS_PROBE_LOCK} was not "
+          f"seen: {rep['blocking']}")
+    unack = [u for u in lw.unacknowledged(rep)
+             if u.get("lock") != WITNESS_PROBE_LOCK]
+    check(rep["edges"] > 0, "5h: the lock witness saw no nested lock")
+    check(not unack, "5h unacknowledged witness findings: "
+          + json.dumps(unack)[:3000])
+    return {"edges": rep["edges"], "edges_dropped": rep["edges_dropped"],
+            "cycles": [c["key"] for c in rep["cycles"]],
+            "blocking_by_kind": by_kind,
+            "blocking": [{k: v[k] for k in ("key", "count", "site")}
+                         for v in rep["blocking"]],
+            "probe": [v["key"] for v in probe],
+            "unacknowledged": len(unack),
+            "locks_timed": len(locks),
+            "top_wait_ms": _top_locks(locks, "wait_ms"),
+            "top_hold_ms": _top_locks(locks, "hold_ms"),
+            "top_max_wait_us": _top_locks(locks, "max_wait_us"),
+            "top_condvar_wakeups": [
+                [name, wakeups, locks[name]["cv_mean_latency_us"]]
+                for name, wakeups, _ in _top_locks(locks, "cv_wakeups")]}
+
+
+def witness_vs_cluster(witness: dict, cluster: dict, smi: str) -> dict:
+    """Phase 5h's walls beside phase 5c's: the same deployment, 5h with
+    the witness and lock timing on (128 objects, one OSD killed), 5c with
+    both off (512 objects, two killed); rates, since the sizes differ."""
+    def side(line, killed):
+        return {"objects": line["objects"], "killed": killed,
+                "write_s": line["write_s"],
+                "write_GBps": line["write_GBps"],
+                "degraded_read_s": line["degraded_read_s"],
+                "degraded_read_GBps": line["degraded_read_GBps"],
+                "recovery_s": line["recovery_s"]}
+    return {"phase": "witness_vs_cluster", "card": smi,
+            "witness_on": side(witness, [witness["killed"]]),
+            "witness_off": side(cluster, cluster["killed"])}
+
+
+#: the arguments that run phases 5c-5h alone (each the child process of
+#: :func:`phase_in_child`)
 CLUSTER_CHILD_ARG = "--cluster-phase"
 SCRUB_CHILD_ARG = "--scrub-phase"
 CRIMSON_CHILD_ARG = "--crimson-phase"
 SERVING_CHILD_ARG = "--serving-phase"
 MGR_CHILD_ARG = "--mgr-phase"
+WITNESS_CHILD_ARG = "--witness-phase"
+#: with ``--witness-phase``: 5h's steps with neither the witness nor
+#: lock timing armed (what the wrappers cost, beside an armed run)
+WITNESS_UNARMED_ARG = "--unarmed"
 
 
 def phase_in_child(arg: str, phase: str, timeout: float = 900) -> dict:
@@ -3382,7 +3632,7 @@ def main() -> int:
     # -- 13. the engine under torch.profiler ------------------------------
     engine_profile_phase(dev, codec, sinfo)
 
-    # -- 5c-5g. the cluster phases, each in a child process on the card,
+    # -- 5c-5h. the cluster phases, each in a child process on the card,
     # after every profiler session of this process: sessions after a
     # cluster child have come back empty (phase 8) --------------------------
     # 5c. the OSD chain: a MiniCluster pool on the card
@@ -3402,6 +3652,10 @@ def main() -> int:
           f"5g ran nvcc for a library phase 2 built: {mgr['build_ledger']}")
     mgr_launches = mgr["launches"] | {
         "traced_burst": mgr["traced_burst"]["launches"]}
+    # 5h. 5c's deployment under the lock witness and lock timing
+    witness = phase_in_child(WITNESS_CHILD_ARG, "witness")
+    emit(witness_vs_cluster(witness, threaded, smi))
+    witness_launches = witness["launches"]
     # 5d. deep scrub over BlockStore
     scrub_launches = phase_in_child(SCRUB_CHILD_ARG, "scrub")["launches"]
 
@@ -3425,6 +3679,8 @@ def main() -> int:
                               in serving_launches.items()},
          "mgr_launches": {step: n["gf_matvec"] for step, n
                           in mgr_launches.items()},
+         "witness_launches": {step: n["gf_matvec"] for step, n
+                              in witness_launches.items()},
          "scrub_launches": {step: n["gf_matvec"] for step, n
                             in scrub_launches.items()},
          "decode": {label: {key: timings[label][key] for key in
@@ -3448,6 +3704,8 @@ def main() -> int:
                               in serving_launches.items()},
          "mgr_launches": {step: n["crc32c_rows"] for step, n
                           in mgr_launches.items()},
+         "witness_launches": {step: n["crc32c_rows"] for step, n
+                              in witness_launches.items()},
          "scrub_launches": {step: n["crc32c_rows"] for step, n
                             in scrub_launches.items()}},
     ] + clay + [
@@ -3474,4 +3732,8 @@ if __name__ == "__main__":
         raise SystemExit(child_main(serving_phase))
     if MGR_CHILD_ARG in sys.argv[1:]:
         raise SystemExit(child_main(mgr_phase))
+    if WITNESS_CHILD_ARG in sys.argv[1:]:
+        armed = WITNESS_UNARMED_ARG not in sys.argv[1:]
+        raise SystemExit(child_main(
+            lambda smi: witness_phase(smi, armed=armed)))
     raise SystemExit(main())

@@ -335,10 +335,11 @@ def test_hbm_gauges_zero_across_cluster_lifecycles():
     telemetry().reset()
 
 
-def _interleave(cls, backend) -> dict:
+def _interleave(cls, backend) -> tuple[dict, dict]:
     """The reference's interleaved write/remove rounds on one object
-    through the shared engine, then a final write; returns every OSD's
-    stored objects."""
+    through the shared engine, then a final write and a deep scrub of
+    the pool; returns every OSD's stored objects and the scrub's
+    report."""
     with cls(n_osds=3) as cluster:
         cluster.create_ec_pool("ord", k=2, m=1, pg_num=4, backend=backend)
         io = cluster.client().open_ioctx("ord")
@@ -365,22 +366,28 @@ def _interleave(cls, backend) -> dict:
         final = b"f" * 8192
         io.write_full("hot", final)
         assert io.read("hot") == final
-        return _stores(cluster)
+        scrub = cluster.scrub_pool("ord", repair=False, deep=True)
+        return _stores(cluster), scrub
 
 
 def test_interleaved_write_remove_order_through_shared_engine():
     """Counterpart of the reference's
-    test_interleaved_write_remove_order_through_shared_engine. Deep
-    scrub is not ported (ROADMAP A.4), so the ordering oracle is (1) the
+    test_interleaved_write_remove_order_through_shared_engine. The
+    ordering oracles: (1) the port's deep scrub of the pool (its device
+    verify re-encodes every object and checks every shard's crc) finds
+    no inconsistency, as the reference's does on its own run; (2) the
     reference cluster's run of the same sequence: every shard of the
-    final object holds the same bytes, ``sz`` and ``hinfo``; (2) the
+    final object holds the same bytes, ``sz`` and ``hinfo``; (3) the
     host re-encode of the stored data shards equals the stored parity;
-    (3) the shards agree on one version. The version itself (``v``) and
+    (4) the shards agree on one version. The version itself (``v``) and
     the PG log are not compared with the reference: they count the ops
     that committed, and whether a racing remove found the object depends
     on the interleaving."""
-    ref = _interleave(RefCluster, "jax")
-    port = _interleave(MiniCluster, "torch")
+    ref, ref_scrub = _interleave(RefCluster, "jax")
+    port, scrub = _interleave(MiniCluster, "torch")
+    assert ref_scrub["inconsistent"] == {}, ref_scrub
+    assert scrub["inconsistent"] == {}, scrub
+    assert scrub.get("deep") and scrub["objects"] >= 1, scrub
     hot = {key[2]: val for key, val in port.items() if key[3] == "hot"}
     ref_hot = {key[2]: val for key, val in ref.items() if key[3] == "hot"}
     assert sorted(hot) == sorted(ref_hot) == [0, 1, 2]

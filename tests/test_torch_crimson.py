@@ -5,8 +5,8 @@ First the counterparts of the 12 tests of ``tests/test_crimson.py``: the
 single-OSD flat path (boot, maps, beacons, replicated objects) and the
 mainline EC data path of a crimson ``MiniCluster`` (``backend=torch``
 where the reference names ``jax``: the kernels' plain versions). The
-reference's multi-tenant test also arms its lock witness; the port has no
-witness yet (ROADMAP A.6), so its counterpart checks the attribution only.
+multi-tenant test arms the port's lock witness, as the reference's arms its
+own, and holds the burst to zero unacknowledged findings.
 
 Then the stores: the same seeded payloads written one after the other into
 a reference crimson cluster and a port crimson cluster are equal shard for
@@ -376,49 +376,66 @@ def test_crimson_kill_revive_preserves_shard_data():
 
 def test_crimson_multi_tenant_burst_attributes_flows():
     """A multi-tenant burst on crimson attributes per-tenant ops, bytes
-    and store-txn costs with >= 95% coverage (the port has no lock
-    witness to arm yet, ROADMAP A.6)."""
+    and store-txn costs with >= 95% coverage, witness-armed: the
+    attribution seams run inside the reactors' submit halves and must
+    not add a cycle or a blocking call under a lock."""
+    import json
+
+    from ceph_tpu_torch.analysis import lock_witness as lw
     from ceph_tpu_torch.utils import flow_telemetry as ft
 
-    with MiniCluster(n_osds=3, osd_flavor="crimson") as cluster:
-        cluster.create_ec_pool("mt", k=2, m=1, pg_num=4, backend="torch")
-        client = cluster.client()
-        warm = client.open_ioctx("mt")
-        warm.op_timeout = 30.0
-        warm.set_flow("warmup")
-        warm.write_full("warm", b"w" * 1024)
-        tel = ft.telemetry_if_exists()
-        assert tel is not None, \
-            "a tagged write must materialize the flows registry"
-        tel.reset()
-        tenants = ("acme", "globex", "initech")
-        ios = []
-        for t in tenants:
-            tio = client.open_ioctx("mt")
-            tio.op_timeout = 30.0
-            tio.set_flow(t)
-            ios.append(tio)
+    lw.enable()
+    try:
+        with MiniCluster(n_osds=3, osd_flavor="crimson") as cluster:
+            cluster.create_ec_pool("mt", k=2, m=1, pg_num=4,
+                                   backend="torch")
+            client = cluster.client()
+            warm = client.open_ioctx("mt")
+            warm.op_timeout = 30.0
+            warm.set_flow("warmup")
+            warm.write_full("warm", b"w" * 1024)
+            tel = ft.telemetry_if_exists()
+            assert tel is not None, \
+                "a tagged write must materialize the flows registry"
+            tel.reset()
+            tenants = ("acme", "globex", "initech")
+            ios = []
+            for t in tenants:
+                tio = client.open_ioctx("mt")
+                tio.op_timeout = 30.0
+                tio.set_flow(t)
+                ios.append(tio)
 
-        def burst(i):
-            tio = ios[i % len(ios)]
-            tio.write_full(f"{tenants[i % 3]}_{i}", b"x" * 4096)
-            assert tio.read(f"{tenants[i % 3]}_{i}") == b"x" * 4096
+            def burst(i):
+                tio = ios[i % len(ios)]
+                tio.write_full(f"{tenants[i % 3]}_{i}", b"x" * 4096)
+                assert tio.read(f"{tenants[i % 3]}_{i}") \
+                    == b"x" * 4096
 
-        with concurrent.futures.ThreadPoolExecutor(4) as pool:
-            list(pool.map(burst, range(18)))
+            with concurrent.futures.ThreadPoolExecutor(4) as pool:
+                list(pool.map(burst, range(18)))
 
-        tel = ft.telemetry()
-        table = tel.flow_table()["flows"]
-        for t in tenants:
-            row = table.get(t)
-            assert row is not None, (t, sorted(table))
-            assert row["ops"] >= 12, (t, row)
-            assert row["bytes_in"] >= 6 * 4096, (t, row)
-            assert row["bytes_out"] >= 6 * 4096, (t, row)
-            assert row["store_txn_bytes"] > 0, (t, row)
-        att = tel.attribution()
-        assert att["ops_pct"] >= 95.0, att
-        assert att["bytes_pct"] >= 95.0, att
+            tel = ft.telemetry()
+            table = tel.flow_table()["flows"]
+            for t in tenants:
+                row = table.get(t)
+                assert row is not None, (t, sorted(table))
+                assert row["ops"] >= 12, (t, row)
+                assert row["bytes_in"] >= 6 * 4096, (t, row)
+                assert row["bytes_out"] >= 6 * 4096, (t, row)
+                assert row["store_txn_bytes"] > 0, (t, row)
+            att = tel.attribution()
+            assert att["ops_pct"] >= 95.0, att
+            assert att["bytes_pct"] >= 95.0, att
+    finally:
+        rep = lw.report()
+        bad = lw.unacknowledged(rep)
+        lw.disable()
+        lw.reset()
+    assert rep["edges"] > 0, rep
+    assert not bad, (
+        "unacknowledged witness findings on the multi-tenant crimson "
+        "burst: " + json.dumps(bad, indent=1)[:2000])
 
 
 # -- the stores against the reference and against the threaded OSD -----

@@ -19,7 +19,10 @@ phase runs on the card with an empty durability sweep. The engine follows
 window and flush-threshold pushes through the config mid-burst with
 bytes equal to the plain versions, ``device_trace`` names B1 and B2, and a
 second process counts the built kernel libraries as build-ledger hits.
-Every test here needs an NVIDIA GPU and skips without one.
+The lock witness sees a device synchronize, an event's and a stream's
+wait under a lock, and a witness-armed ``backend=cuda`` pool leaves no
+finding outside the port's baseline. Every test here needs an NVIDIA GPU
+and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -787,3 +790,53 @@ def test_second_process_counts_build_hits(cuda, tmp_path):
                 CEPH_TPU_COMPILE_CACHE_DIR=str(tmp_path / "off"))
     assert (off["hits"], off["misses"], off["ledger"]) == (0, 0, {}), off
     assert not (tmp_path / "off").exists()
+
+
+@pytest.fixture
+def witness():
+    from ceph_tpu_torch.analysis import lock_witness as lw
+    lw.enable()
+    try:
+        yield lw
+    finally:
+        lw.disable()
+        lw.reset()
+
+
+def test_witness_sees_real_cuda_waits(cuda, witness):
+    """The lock witness's device-barrier hooks fire on the card: a
+    whole-device synchronize, an event's and a stream's wait, each under
+    its own witnessed lock, are three ``device_barrier`` findings; the
+    same waits outside any lock are none."""
+    x = torch.ones(1 << 20, device=cuda)
+    for _ in range(2):
+        y = x * 2
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        torch.cuda.current_stream().synchronize()
+        torch.cuda.synchronize()
+    assert witness.report()["blocking"] == []
+    with witness.make_lock("cuda.sync"):
+        torch.cuda.synchronize()
+    with witness.make_lock("cuda.event"):
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+    with witness.make_lock("cuda.stream"):
+        torch.cuda.current_stream().synchronize()
+    assert float(y[0]) == 2.0
+    got = {(v["kind"], v["lock"]) for v in witness.report()["blocking"]}
+    assert got == {("device_barrier", "cuda.sync"),
+                   ("device_barrier", "cuda.event"),
+                   ("device_barrier", "cuda.stream")}, got
+
+
+def test_witness_armed_cuda_cluster_clean(cuda, witness):
+    """A witness-armed ``backend=cuda`` pool (12 objects through B1 and
+    B2): a lock graph, and no finding outside the port's baseline, so no
+    device wait under a lock on the write path."""
+    _flavour_write_read()
+    rep = witness.report()
+    assert rep["edges"] > 0
+    assert witness.unacknowledged(rep) == [], rep["blocking"]

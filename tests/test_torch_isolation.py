@@ -74,7 +74,9 @@ def test_scan_covers_the_port():
                  "ceph_tpu_torch/utils/device_telemetry.py",
                  "ceph_tpu_torch/utils/stage_clock.py",
                  "ceph_tpu_torch/utils/dout.py",
-                 "ceph_tpu_torch/utils/noop_hooks.py",
+                 "ceph_tpu_torch/analysis/lock_witness.py",
+                 "ceph_tpu_torch/analysis/linters.py",
+                 "ceph_tpu_torch/tools/analyze.py",
                  "ceph_tpu_torch/bench/engine_loop.py",
                  "ceph_tpu_torch/bench/measure.py",
                  "ceph_tpu_torch/osd/ec_backend.py",
