@@ -14,7 +14,8 @@ fingerprint. At report time:
 - a *blocking-under-lock* finding is a blocking operation executed
   while holding any witnessed lock: a device barrier
   (``torch.cuda.synchronize``, ``torch.cuda.Event.synchronize``,
-  ``torch.cuda.Stream.synchronize``), a blocking admin-socket
+  ``torch.cuda.Stream.synchronize``, and ``ops/backend.device_get``, the
+  copy from the card to the host), a blocking admin-socket
   round-trip, ``os.fsync``, or ``Condition.wait`` on a different lock.
 
 Contract when DISABLED (the default): the ``make_*`` constructors
@@ -607,6 +608,7 @@ def _wrap_blocking(owner, attr: str, kind: str) -> None:
 def _install_hooks() -> None:
     import torch
 
+    from ceph_tpu_torch.ops import backend as backend_mod
     from ceph_tpu_torch.utils import admin_socket
     _wrap_blocking(os, "fsync", "fsync")
     _wrap_blocking(admin_socket, "asok_command", "socket_send")
@@ -614,11 +616,13 @@ def _install_hooks() -> None:
     # event and stream waits (methods: patched on the class, so every
     # instance, made before or after, goes through the hook). A torch
     # built for the CPU has these classes too; only their use raises.
-    # A copy from the card to the host (``.cpu()``) also waits, and is
-    # not hooked: only these explicit waits are witnessed.
     _wrap_blocking(torch.cuda, "synchronize", "device_barrier")
     _wrap_blocking(torch.cuda.Event, "synchronize", "device_barrier")
     _wrap_blocking(torch.cuda.Stream, "synchronize", "device_barrier")
+    # and the blocking copy from the card to the host (the reference's
+    # ``jax.device_get`` hook): every daemon-path download goes through
+    # ``backend.device_get`` (``backend.to_host`` of a card tensor)
+    _wrap_blocking(backend_mod, "device_get", "device_barrier")
 
 
 def _remove_hooks() -> None:

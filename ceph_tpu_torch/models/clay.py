@@ -137,11 +137,13 @@ class ErasureCodeClay(ErasureCode):
         self._enc_fn = None
         # the plane machinery issues thousands of tiny per-sub-chunk
         # solves: the inner codecs stay on the host whatever the hot
-        # path's device
+        # path's device, on the host backend asked for, else native
+        sub_backend = backend if backend in ("numpy", "native") \
+            else "native"
         mds_profile = {"technique": technique, "k": str(k + self.nu),
-                       "m": str(m), "backend": "numpy"}
+                       "m": str(m), "backend": sub_backend}
         pft_profile = {"technique": technique, "k": "2", "m": "2",
-                       "backend": "numpy"}
+                       "backend": sub_backend}
         if scalar_mds == "shec":
             mds_profile["c"] = pft_profile["c"] = "2"
         self.mds = instance().factory(scalar_mds, mds_profile, device="cpu")
@@ -586,8 +588,8 @@ class ErasureCodeClay(ErasureCode):
         x = self._stack(chunks, range(self.k), ssc, sc)
         resolved = self.resolved_backend
         if resolved in backend_mod.DEVICE_BACKENDS:
-            par = self._encode_fn()(
-                self._upload(x).reshape(self.k, ssc, sc)).cpu().numpy()
+            par = backend_mod.to_host(self._encode_fn()(
+                self._upload(x).reshape(self.k, ssc, sc)))
             return {pos: par[pos - self.k].reshape(-1)
                     for pos in want_to_encode
                     if self.k <= pos < self.k + self.m}
@@ -617,8 +619,8 @@ class ErasureCodeClay(ErasureCode):
             fn = self._lin_cached(
                 ("sparse",) + sig_key,
                 lambda: build_decode_matvec(self, mat, label=label))
-            return fn(xt).cpu().numpy()
-        return backend_mod.matvec(mat, xt, resolved).cpu().numpy()
+            return backend_mod.to_host(fn(xt))
+        return backend_mod.to_host(backend_mod.matvec(mat, xt, resolved))
 
     def _decode_matrix(self, avail: tuple, erased: tuple) -> np.ndarray:
         ssc = self.sub_chunk_no
@@ -683,7 +685,7 @@ class ErasureCodeClay(ErasureCode):
             if node not in key and c < n:
                 c_full[node] = np.asarray(
                     buf, dtype=np.uint8).reshape(ssc, sc)
-        rec = fn(self._upload(c_full)).cpu().numpy()
+        rec = backend_mod.to_host(fn(self._upload(c_full)))
         er_sorted = sorted(key)
         for c in missing:
             node = self._node_id(c)

@@ -86,7 +86,7 @@ class MatrixErasureCode(ErasureCode):
         dev = torch.from_numpy(np.ascontiguousarray(data, dtype=np.uint8))
         out = backend_mod.matvec(mat, dev.to(self.device),
                                  self.resolved_backend)
-        return out.cpu().numpy()
+        return backend_mod.to_host(out)
 
     def encode_chunks(self, want_to_encode, chunks):
         k, n = self._k, self.get_chunk_count()

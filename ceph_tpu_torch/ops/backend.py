@@ -15,6 +15,8 @@ with ``data`` a uint8 torch tensor and the result on its device. Backends:
   ``gf_torch.dense_calls`` — the reference's pallas backend routes such
   matrices to its plain XLA product the same way (gf_pallas.py:237-243);
 - ``torch``: the plain bit-sliced version (ops/gf_torch.py);
+- ``native``: the host C++ library (ops/native.py, registered on import of
+  this module), the host twin's backend;
 - ``numpy``: the gf256 host oracle.
 
 ``auto`` is the backend the ``erasure_code_backend`` option names, as in
@@ -31,8 +33,22 @@ from ceph_tpu_torch.ops import gf256, gf_cuda, gf_torch
 from ceph_tpu_torch.utils.config import g_conf
 
 
+def device_get(t: torch.Tensor) -> np.ndarray:
+    """Copy ``t`` to host numpy, waiting for the work that makes it: the
+    port's counterpart of ``jax.device_get``, and the one seam of a copy
+    from the card to the host on the daemon paths (the lock witness
+    wraps it as a ``device_barrier``)."""
+    return t.cpu().numpy()
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as host numpy: a CPU tensor's own memory, a card tensor
+    through :func:`device_get`."""
+    return t.numpy() if t.device.type == "cpu" else device_get(t)
+
+
 def _numpy(mat: np.ndarray, data: torch.Tensor) -> torch.Tensor:
-    out = gf256.gf_matvec_chunks(mat, data.cpu().numpy())
+    out = gf256.gf_matvec_chunks(mat, to_host(data))
     return torch.from_numpy(out).to(data.device)
 
 
@@ -69,3 +85,7 @@ def resolve_name(name: str, device) -> str:
 def matvec(mat: np.ndarray, data: torch.Tensor,
            backend: str = "auto") -> torch.Tensor:
     return BACKENDS[resolve_name(backend, data.device)](mat, data)
+
+
+# registers "native" (it imports this module back: BACKENDS exists by now)
+from ceph_tpu_torch.ops import native as _native  # noqa: E402,F401

@@ -27,6 +27,7 @@ import functools
 import numpy as np
 import torch
 
+from ceph_tpu_torch.ops import backend as backend_mod
 from ceph_tpu_torch.ops import bitmatrix, cuda_build, gf_xor_cuda
 
 
@@ -99,10 +100,10 @@ class StripCodecKernel:
         layout (chunk c = its 8 strips concatenated): upload to the
         kernel's device, transform, download."""
         if isinstance(data, torch.Tensor):
-            data = data.cpu().numpy()
+            data = backend_mod.to_host(data)
         strips = torch.from_numpy(to_strips(np.asarray(data, np.uint8)))
         out = self.encode_strips(strips.to(self.device))
-        return from_strips(out.cpu().numpy())
+        return from_strips(backend_mod.to_host(out))
 
 
 @functools.lru_cache(maxsize=512)

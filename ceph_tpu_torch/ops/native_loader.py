@@ -1,11 +1,13 @@
 """ctypes loader for the port's host native library.
 
 Port of ``ceph_tpu/ops/native_loader.py``. The library holds what the
-port's host layers need from the reference's ``ops/native/``: crc32c and
-xxhash32/64 (``native/checksum.cc``, the checksum part of the reference's
-``gf256.cc``), the blockstore's data-file engine (``native/io_engine.cc``)
-and the LZ4-block and Snappy codecs (``native/lzcodecs.cc``). The host GF
-matvec is left out: the port's host GF runs in numpy and torch.
+port's host layers need from the reference's ``ops/native/``: the host
+GF(2^8) matvec, region XOR and multiply-add (``native/gf256.cc``, the GF
+part of the reference's ``gf256.cc``; the ``native`` backend of
+``ops/native.py``), crc32c and xxhash32/64 (``native/checksum.cc``, its
+checksum part), the blockstore's data-file engine
+(``native/io_engine.cc``) and the LZ4-block and Snappy codecs
+(``native/lzcodecs.cc``).
 
 Python<->native binding uses ctypes, and a ctypes call gives up the GIL
 for its length, so a crc of a shard does not stall the other threads. On
@@ -31,7 +33,7 @@ import numpy as np
 
 SRC_DIR = Path(__file__).resolve().parent.parent / "native"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
-SOURCES = ("checksum.cc", "io_engine.cc", "lzcodecs.cc")
+SOURCES = ("gf256.cc", "checksum.cc", "io_engine.cc", "lzcodecs.cc")
 #: the reference's Makefile: CXXFLAGS then ARCHFLAGS
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall",
              "-mavx2", "-msse4.2")
@@ -40,6 +42,9 @@ BUILD_TIMEOUT_S = 300.0
 
 _lock = threading.Lock()
 _lib = None
+#: calls of :func:`matvec` (the host encode and decode of the ``native``
+#: backend) since the last :func:`reset_calls`
+matvec_calls = 0
 
 
 class NativeBuildError(RuntimeError):
@@ -87,6 +92,7 @@ def get_lib() -> ctypes.CDLL:
                 _build(out)
             lib = ctypes.CDLL(str(out))
             _bind(lib)
+            lib.gf256_init()
             _lib = lib
     return _lib
 
@@ -94,6 +100,16 @@ def get_lib() -> ctypes.CDLL:
 def _bind(lib) -> None:
     u8p = ctypes.POINTER(ctypes.c_uint8)
     u32p = ctypes.POINTER(ctypes.c_uint32)
+    lib.gf256_init.restype = None
+    lib.gf256_init.argtypes = []
+    lib.gf256_region_xor.restype = None
+    lib.gf256_region_xor.argtypes = [u8p, u8p, ctypes.c_uint64]
+    lib.gf256_region_mul_add.restype = None
+    lib.gf256_region_mul_add.argtypes = [u8p, u8p, ctypes.c_uint8,
+                                         ctypes.c_uint64]
+    lib.gf256_matvec.restype = None
+    lib.gf256_matvec.argtypes = [u8p, ctypes.c_int, ctypes.c_int, u8p, u8p,
+                                 ctypes.c_uint64]
     lib.ceph_crc32c.restype = ctypes.c_uint32
     lib.ceph_crc32c.argtypes = [ctypes.c_uint32, u8p, ctypes.c_uint64]
     lib.ceph_xxhash64.restype = ctypes.c_uint64
@@ -137,6 +153,52 @@ def _buf(data) -> np.ndarray:
     if isinstance(data, np.ndarray):
         return np.ascontiguousarray(data, np.uint8).reshape(-1)
     return np.frombuffer(memoryview(data), dtype=np.uint8)
+
+
+def reset_calls() -> None:
+    global matvec_calls
+    matvec_calls = 0
+
+
+def matvec(mat: np.ndarray, data: np.ndarray) -> np.ndarray:
+    """[m, k] (x) [k, N] -> [m, N] uint8 over GF(2^8): the ec_encode_data
+    role, one row of ``data`` a contiguous slab."""
+    global matvec_calls
+    lib = get_lib()
+    mat = np.ascontiguousarray(mat, dtype=np.uint8)
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    m, k = mat.shape
+    if data.shape[0] != k:
+        raise ValueError(f"matrix {mat.shape} against data {data.shape}")
+    n = data.shape[1]
+    out = np.empty((m, n), dtype=np.uint8)
+    lib.gf256_matvec(_as_u8p(mat), m, k, _as_u8p(data), _as_u8p(out), n)
+    matvec_calls += 1
+    return out
+
+
+def _region_args(dst: np.ndarray, src: np.ndarray) -> int:
+    """Bytes of a region op; ``dst`` is written in place, so both must be
+    contiguous uint8 of one size."""
+    for arr in (dst, src):
+        if arr.dtype != np.uint8 or not arr.flags.c_contiguous:
+            raise ValueError("region ops take contiguous uint8 arrays")
+    if dst.size != src.size:
+        raise ValueError(f"region sizes {dst.size} != {src.size}")
+    return dst.size
+
+
+def region_xor(dst: np.ndarray, src: np.ndarray) -> None:
+    """dst ^= src, in place."""
+    n = _region_args(dst, src)
+    get_lib().gf256_region_xor(_as_u8p(dst), _as_u8p(src), n)
+
+
+def region_mul_add(dst: np.ndarray, src: np.ndarray, c: int) -> None:
+    """dst ^= c * src over GF(2^8), in place (ISA-L's gf_vect_mad)."""
+    n = _region_args(dst, src)
+    get_lib().gf256_region_mul_add(_as_u8p(dst), _as_u8p(src),
+                                   ctypes.c_uint8(c), n)
 
 
 def crc32c(data, crc: int = 0) -> int:

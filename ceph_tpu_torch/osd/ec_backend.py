@@ -104,8 +104,9 @@ class DeviceFault(ECReadError):
 #: ``auto_device``, which resolves to ``cuda``
 DEVICE_BACKENDS = ("cuda", "torch", "auto_device")
 
-#: the host twin's backend (the gf256 tables on the CPU)
-HOST_BACKEND = "numpy"
+#: the host twin's backend: the native host library's GF matvec
+#: (ops/native.py), as the reference's host twin takes its ``native``
+HOST_BACKEND = "native"
 
 #: errno carried to the client when a device fault fails an op
 EIO = -5

@@ -32,7 +32,7 @@ import torch
 from ceph_tpu_torch.models.interface import ErasureCodeError
 from ceph_tpu_torch.models.matrix_codec import MatrixErasureCode
 from ceph_tpu_torch.ops import backend as backend_mod
-from ceph_tpu_torch.ops import crc32c_torch, gf256
+from ceph_tpu_torch.ops import cost_model, crc32c_torch, native_loader
 from ceph_tpu_torch.utils import checksum
 from ceph_tpu_torch.utils.device_telemetry import telemetry
 
@@ -391,7 +391,7 @@ def _split_results(ops, lens, k, data_shards, parity, lin):
 def flush_host_async(sinfo: StripeInfo, codec, ops, bufs, batch=None):
     """Small-flush HOST route: the same ``finalize() -> [(op_id, shards,
     None)]`` contract as the fused flush, but the encode is one host
-    matvec (the gf256 oracle) run at finalize time."""
+    matvec (the ``native`` backend's) run at finalize time."""
     cs, sw = sinfo.chunk_size, sinfo.stripe_width
     k = codec.get_data_chunk_count()
     lens = [len(b) // sw * cs for b in bufs]
@@ -401,7 +401,7 @@ def flush_host_async(sinfo: StripeInfo, codec, ops, bufs, batch=None):
 
     def finalize():
         data_shards = _data_shards(batch, sinfo, k)
-        parity = gf256.gf_matvec_chunks(codec.coding_matrix, data_shards)
+        parity = native_loader.matvec(codec.coding_matrix, data_shards)
         return _split_results(ops, lens, k, data_shards, parity, None)
 
     return finalize
@@ -446,6 +446,19 @@ def fused_step(mat: np.ndarray, data_dev: torch.Tensor, lens, lmax: int,
         _segments(data_dev, parity, lens, lmax))
     n_chunks = data_dev.shape[0] + parity.shape[0]
     return parity, lin.reshape(len(lens), n_chunks)
+
+
+def _fused_step_cost(mat: np.ndarray, data_dev: torch.Tensor, lens,
+                     lmax: int, backend: str) -> dict:
+    """:func:`fused_step`'s analytic cost (ops/cost_model.py)."""
+    m, k = mat.shape
+    return cost_model.fused_flush(m, k, data_dev.shape[1], len(lens), lmax)
+
+
+fused_step.cost = _fused_step_cost
+
+#: fused-flush signatures whose cost is recorded (CEPH_TPU_COST_ANALYSIS)
+_costed_signatures: set[str] = set()
 
 
 def _flush_device_fused_async(sinfo: StripeInfo, codec, ops, bufs,
@@ -497,6 +510,13 @@ def _flush_device_fused_async(sinfo: StripeInfo, codec, ops, bufs,
         data_dev = flat.view(s, k, cs).permute(1, 0, 2).contiguous() \
             .view(k, s * cs)
         t2 = time.perf_counter()
+        if signature not in _costed_signatures and \
+                os.environ.get("CEPH_TPU_COST_ANALYSIS"):
+            # the analytic cost of each new signature, into the device
+            # telemetry's table (opt-in, as in the reference)
+            _costed_signatures.add(signature)
+            cost_model.analyze(fused_step, mat, data_dev, lens, lmax,
+                               backend, signature=signature)
         parity, lin = telemetry().timed_call(
             signature, fused_step, mat, data_dev, lens, lmax, backend)
     split = {"upload_s": t1 - t0, "transpose_s": t2 - t1,

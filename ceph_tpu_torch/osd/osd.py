@@ -2104,11 +2104,35 @@ class OSD:
                 be.submit_remove(pg, msg.oid, version,
                                  lambda code, v=version: reply(code, b"", v))
             elif op == M.OSD_OP_CALL:
-                # in-OSD object classes (src/cls role) are not ported
-                # yet (ROADMAP A.6): the client is told so
-                log(1, f"op {msg.oid}: cls {msg.cls}.{msg.method} "
-                    "not ported (ROADMAP A.6)")
-                reply(EOPNOTSUPP, b"object classes (cls) not ported")
+                # in-OSD object class (src/cls role): the method runs
+                # here on the primary, atomically with respect to other
+                # ops of this PG (we hold pg.lock); a mutation goes
+                # back out through the normal versioned write path
+                from ceph_tpu_torch import cls as cls_mod
+                try:
+                    cur = bytes(be.read_object(pg, msg.oid))
+                except (NoSuchObject, NoSuchCollection):
+                    cur = None
+                code, out, new_obj = cls_mod.call(
+                    msg.cls, msg.method, msg.data, cur)
+                if code < 0:
+                    reply(code)
+                elif new_obj is cls_mod.REMOVE:
+                    # the method dropped the object (cls_cxx_remove
+                    # role, e.g. refcount.put on the last reference)
+                    self.logger.inc("op_w")
+                    version = pg.alloc_version()
+                    be.submit_remove(
+                        pg, msg.oid, version,
+                        lambda c, v=version, o=out: reply(c, o, v))
+                elif new_obj is not None:
+                    self.logger.inc("op_w")
+                    version = pg.alloc_version()
+                    be.submit_write(
+                        pg, msg.oid, new_obj, version,
+                        lambda c, v=version, o=out: reply(c, o, v))
+                else:
+                    reply(0, out)
             elif op == M.OSD_OP_LIST:
                 oids = self._list_pg(pg)
                 reply(0, json.dumps(oids).encode())

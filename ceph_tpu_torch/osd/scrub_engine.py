@@ -60,6 +60,7 @@ import time
 import numpy as np
 import torch
 
+from ceph_tpu_torch.ops import backend as backend_mod
 from ceph_tpu_torch.ops import crc32c_torch, gf_cuda
 from ceph_tpu_torch.osd import ec_util
 from ceph_tpu_torch.osd.pg_backend import SUBOP_TIMEOUT, SubOpWait
@@ -155,8 +156,8 @@ def verify_batch(mat: np.ndarray, k: int, batch: np.ndarray, mesh=None,
     sig = f"scrub_verify[{m}x{k}]L{l_b}n{nobj_b}"
     dev_batch = torch.from_numpy(np.ascontiguousarray(batch)).to(device)
     mism, lin = _telemetry().timed_call(sig, fn, dev_batch)
-    return (mism.cpu().numpy()[:nobj],
-            lin.cpu().numpy().astype(np.uint32)[:nobj])
+    return (backend_mod.to_host(mism)[:nobj],
+            backend_mod.to_host(lin).astype(np.uint32)[:nobj])
 
 
 class DeepScrubEngine:

@@ -23,7 +23,8 @@ log = Dout("qa")
 
 #: backend names ``CEPH_TPU_EC_BACKEND`` may force onto a pool: the port's
 #: device backends and its host ones
-FORCED_BACKENDS = ("cuda", "torch", "auto_device", "numpy", "auto")
+FORCED_BACKENDS = ("cuda", "torch", "auto_device", "native", "numpy",
+                   "auto")
 
 
 class MiniCluster:

@@ -38,10 +38,12 @@ Phases, each printing one JSON line:
    the entry point (``b2_ms``, beside the thread-per-row design's
    ``b2_prev_ms``), through its C launcher (``b2_wrapper_ms``) and as the
    profiler's device time (``b2_device_ms``); each beside its plain
-   version and its bound; the stage-2 combine of the flush's 1408 x 256
-   row crcs (``stage2_combine``: events and device time, held against the
-   CPU); and the fused flush's wall time, with a torch.profiler breakdown
-   of one flush (device busy share, top device and host entries);
+   version and its bound (``ops/cost_model.py``); the stage-2 combine of
+   the flush's 1408 x 256 row crcs (``stage2_combine``: events and device
+   time, held against the CPU); and the fused flush's wall time and GB/s
+   beside its analytic cost and roofline (``cost_flops``, ``cost_bytes``,
+   ``roofline_GBps``), with a torch.profiler breakdown of one flush
+   (device busy share, top device and host entries);
 5b. engine: the write path through ``DeviceEncodeEngine`` (window 3,
    flushes of 128 MiB) on the same profile: 8 x 128 objects of 1 MiB
    (1 GiB, from the seed) staged from 4 producer threads, after a held
@@ -96,7 +98,8 @@ Phases, each printing one JSON line:
    limit. Kernel launch counts are zeroed before and read after each
    step. The phase runs in a child process on the same card (this script
    with ``--cluster-phase``), so the cluster's threads stay out of this
-   process's profiler sessions, after phase 13 with 5e, 5f, 5g, 5h and 5d;
+   process's profiler sessions, after phase 13 with 5e, 5f, 5g, 5h, 5i
+   and 5d;
 5d. scrub: deep scrub on the card over the durable store, 5c's
    deployment on BlockStore (the BlueStore role; its data files in a
    temporary directory under ``build/scrub/``): 12 OSDs, the ISA k=8,m=3
@@ -123,8 +126,8 @@ Phases, each printing one JSON line:
    second, batches and objects a batch, and B1 and B2 launches by step
    (counts zeroed before and read after each step). It runs in a child
    process like 5c (``--scrub-phase``), which takes no profiler session,
-   and it runs last. The cluster children (5c, 5e, 5f, 5g, 5h, 5d) run after
-   phase 13: profiler sessions in this process after a cluster child
+   and it runs last. The cluster children (5c, 5e, 5f, 5g, 5h, 5i, 5d) run
+   after phase 13: profiler sessions in this process after a cluster child
    have come back empty (phase 8). The ``scrub_times`` line, in
    phase 5, gives the verify program's events and profiler device ms at
    5d's batch shape (16 objects of 11 shards of 128 KiB: seeded bytes,
@@ -203,15 +206,46 @@ Phases, each printing one JSON line:
    revived and ``wait_for_clean``; every object read back and 16 objects'
    shards checked against the host oracles. Checked: the probe shows up as
    a ``device_barrier`` finding on its lock (the hook fires on real CUDA;
-   the witness sees explicit waits on the card, not a copy to the host);
-   no other finding outside the ``witness`` section of
-   ``analysis/baseline.json``; a lock-order graph with at least one edge;
+   the witness sees the explicit waits on the card and every copy from
+   the card to the host, ``ops/backend.device_get``); no other finding
+   outside the ``witness`` section of ``analysis/baseline.json``; a lock-order graph with at least one edge;
    B2 launches equal the write's fused flushes. The ``witness`` line
    prints edges, cycles, findings by kind and lock, the top 5 locks by
    total wait, by total hold and by longest wait, the top condvar
    wakeups (``dispatch`` telemetry), the walls and the launches by step;
    ``witness_vs_cluster`` prints its walls beside 5c's (5h's run with the
    wrappers on, 5c's without);
+5i. rbd: RBD images (``services/rbd.py`` over ``client/striper.py``,
+   the ``rbd`` and ``journal`` object classes run by the OSD's
+   ``OSD_OP_CALL``) on 5c's deployment (12 threaded OSDs on memstore, the
+   ISA k=8,m=3 ``backend=cuda`` pool, ``pg_num=32``, one shared engine, a
+   20 s grace), with ``CEPH_TPU_COST_ANALYSIS=1`` (the fused flush notes
+   each new signature's cost, ``ops/cost_model.py``): (a) image ``disk`` of
+   256 MiB (cut from 5c's 512 MiB) in RBD's default layout (1 MiB
+   objects) filled with 1 MiB writes from 8 threads (the last object
+   first); (b) 512 writes of 4 KiB from 8 threads and (c) a snapshot
+   ``s1`` and 256 more from one writer, at distinct seeded 4 KiB-aligned
+   offsets; (d) the head read whole (8 threads, an object each) and ``s1``
+   through ``snap_read``, each against a host model of the image; (e) the
+   highest OSD killed (the ``fast_death`` knobs until it is down), the
+   head read degraded, the OSD revived, ``wait_for_clean`` and the head
+   read again; (f) a 32 MiB journaled image mirrored by ``MirrorDaemon``
+   into a second pool of the same profile: a bootstrap pass, 8 MiB
+   written, passes until one replays nothing; the mirror must equal the
+   primary; (g) ``rbd_cli`` ``ls``, ``info`` and ``snap ls``. Checked:
+   every read byte for byte; the degraded reads decoded through the
+   engine; the native host GF called in (b) (the RMW's host re-encode);
+   B1 and B2 launched in (c) (the snapshot's copy-on-write copies are
+   1 MiB ``write_full``s; a 1 MiB RBD write is an OSD ``write``, the
+   partial-write path, whose re-encode is the host twin's in both
+   packages); B2 once a fused flush; every fused-flush signature noted
+   its cost; no engine error. The ``rbd`` line prints each step's wall and
+   GB/s, B1 and B2 launches, native matvec calls, object-class calls by
+   class and method, fused and host flushes and ops a flush, the mirror's
+   passes, the CLI's output, and each noted signature's cost and
+   roofline GB/s beside its measured GB/s (its device step re-run on the
+   card at the recorded shape). Runs in a child process
+   (``--rbd-phase``);
 6. Clay kernels against their plain versions on the card, byte-exact: B3
    and B4 over k=8,m=4,d=11, k=4,m=2 and k=4,m=3,d=6 (virtual nodes) at
    ragged L (B3 also at 64 and 32 Ki lanes, its short form; B3 and B4 from
@@ -286,7 +320,6 @@ or failed launch raises and exits non-zero before the last line.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import json
 import linecache
 import os
@@ -300,16 +333,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-#: published peaks of one H100 SXM (NVIDIA data sheet): device memory,
-#: used only if the card does not report its memory clock and bus, and
-#: the dense int8 tensor rate that bounds the bit-matrix formulation
-H100_HBM_BYTES_PER_S = 3.35e12
-H100_INT8_OPS_PER_S = 1979e12
-#: two-input int32 operations (XOR) per second: Hopper runs 64 int32
-#: lanes per SM and clock, half its float32 lanes, so a quarter of the
-#: published 67e12 float32 FMA flop rate (two flops per FMA)
-H100_INT32_OPS_PER_S = 67e12 / 4
 
 K, M = 8, 3
 OBJECT_BYTES = 1 << 20
@@ -427,23 +450,6 @@ def nvidia_smi_line() -> str:
     except (OSError, subprocess.SubprocessError) as exc:
         return f"nvidia-smi unavailable ({exc})"
     return out.strip().splitlines()[0]
-
-
-def hbm_rate() -> tuple[float, str]:
-    """Peak device-memory bytes/s from the card's memory clock and bus
-    width (cuDeviceGetAttribute 36 and 37; double data rate)."""
-    try:
-        lib = ctypes.CDLL("libcuda.so.1")
-        dev, clk, bus = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        rc = lib.cuDeviceGet(ctypes.byref(dev), torch.cuda.current_device())
-        rc |= lib.cuDeviceGetAttribute(ctypes.byref(clk), 36, dev)
-        rc |= lib.cuDeviceGetAttribute(ctypes.byref(bus), 37, dev)
-        if rc == 0 and clk.value > 0 and bus.value > 0:
-            return (2.0 * clk.value * 1e3 * bus.value / 8,
-                    f"card: {clk.value} kHz x {bus.value} bit x 2")
-    except OSError:
-        pass
-    return H100_HBM_BYTES_PER_S, "published H100 SXM peak"
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -2081,9 +2087,9 @@ def witness_phase(smi: str, backend: str = "cuda",
     lock timing armed before anything of the port is built (see the
     module docstring). Fails on an unacknowledged finding, an empty lock
     graph, a wrong byte, or a planted device barrier the witness did not
-    see. The witness sees explicit waits on the card only
-    (``torch.cuda.synchronize`` and the event and stream waits); a copy
-    from the card to the host (``.cpu()``) waits too, unwitnessed.
+    see. The witness sees the explicit waits on the card
+    (``torch.cuda.synchronize`` and the event and stream waits) and the
+    copies from the card to the host (``ops/backend.device_get``).
     ``backend="torch"`` runs the plain versions (a rehearsal on the CPU,
     where no launch is counted and the probe's barrier raises after the
     hook saw it). ``armed=False`` runs the same steps and checks of the
@@ -2278,7 +2284,367 @@ def witness_vs_cluster(witness: dict, cluster: dict, smi: str) -> dict:
             "witness_off": side(cluster, cluster["killed"])}
 
 
-#: the arguments that run phases 5c-5h alone (each the child process of
+# -- 5i. RBD images on the pool --------------------------------------------
+
+#: phase 5i: an RBD image in 5c's pool, cut from 5c's 512 MiB to 256 MiB,
+#: with RBD's default layout (1 MiB objects); 512 writes of 4 KiB from 8
+#: threads, a snapshot and 256 more, at distinct seeded 4 KiB-aligned
+#: offsets (distinct, so the host model does not depend on which of two
+#: racing writes lands last); a 32 MiB journaled image with 8 MiB
+#: written, mirrored into a second pool of the same profile. The 4 KiB
+#: writes are cut from 2048, which took 120 s on an H100 host: every
+#: striper write also rewrites the image's one meta object, so they
+#: queue on its PG
+RBD_OBJECT = 1 << 20
+RBD_IMAGE_BYTES = 256 << 20
+RBD_BLOCK = 4096
+RBD_SMALL_WRITES = 512
+RBD_SNAP_WRITES = 256
+RBD_JOURNALED_BYTES = 32 << 20
+RBD_JOURNALED_WRITTEN = 8 << 20
+#: sync passes the mirror may take to catch up (each replays every event
+#: the journal holds past the mirror's commit position)
+RBD_MIRROR_PASSES = 20
+
+
+@contextlib.contextmanager
+def _counted_cls_calls(counts: dict):
+    """Count the port's object-class calls by ``class.method`` into
+    ``counts`` while the block runs (the OSD looks ``cls.call`` up at each
+    ``OSD_OP_CALL``)."""
+    from ceph_tpu_torch import cls as cls_mod
+    real = cls_mod.call
+    lock = threading.Lock()
+
+    def counted(cls_name, method, inp, obj):
+        key = f"{cls_name}.{method}"
+        with lock:
+            counts[key] = counts.get(key, 0) + 1
+        return real(cls_name, method, inp, obj)
+
+    cls_mod.call = counted
+    try:
+        yield
+    finally:
+        cls_mod.call = real
+
+
+@contextlib.contextmanager
+def _recorded_costs(shapes: dict):
+    """Record, for each fused-flush signature whose cost the flush notes
+    (``CEPH_TPU_COST_ANALYSIS``), the arguments of its device step, so the
+    step can be timed again at that shape."""
+    from ceph_tpu_torch.ops import cost_model
+    real = cost_model.analyze
+
+    def recording(fn, *args, signature=None):
+        if signature is not None:
+            mat, data_dev, lens, lmax, backend = args
+            shapes.setdefault(signature, (mat, tuple(data_dev.shape),
+                                          list(lens), lmax, backend))
+        return real(fn, *args, signature=signature)
+
+    cost_model.analyze = recording
+    try:
+        yield
+    finally:
+        cost_model.analyze = real
+
+
+def _signature_rates(shapes: dict, costs: dict, on_card: bool) -> dict:
+    """Each noted signature's cost and roofline (ops/cost_model.py) beside
+    its measured rate: the fused flush's device step re-run on the card at
+    the recorded shape on seeded bytes (CUDA events, median of 20), data
+    bytes in over its time. Not timed on the CPU."""
+    from ceph_tpu_torch.bench.ec_bench import time_cuda
+    from ceph_tpu_torch.ops import cost_model
+    from ceph_tpu_torch.osd import ec_util
+    out = {}
+    gen = torch.Generator(device="cuda" if on_card else "cpu")
+    gen.manual_seed(SEED + 24)
+    for sig in sorted(shapes):
+        mat, shape, lens, lmax, backend = shapes[sig]
+        cost = costs.get(sig, {})
+        traffic = shape[0] * shape[1]
+        row = {"data_bytes": traffic, "ops": len(lens),
+               "cost_flops": cost.get("flops"),
+               "cost_bytes": cost.get("bytes_accessed"),
+               "roofline_GBps": cost_model.roofline_gbps(
+                   cost.get("flops"), cost.get("bytes_accessed"), traffic),
+               "ms": None, "GBps": None}
+        if on_card:
+            data = torch.randint(0, 256, shape, dtype=torch.uint8,
+                                 device="cuda", generator=gen)
+            s = time_cuda(lambda: ec_util.fused_step(mat, data, lens, lmax,
+                                                     backend), 20)
+            row["ms"], row["GBps"] = s * 1e3, traffic / s / 1e9
+            del data
+        out[sig] = row
+    return out
+
+
+def _rbd_cli(mon_addr: str, pool: str, *cmd: str) -> str:
+    """One ``rbd`` CLI command against the cluster; its standard output."""
+    import io as _io
+    from ceph_tpu_torch.tools import rbd_cli
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = rbd_cli.main(["-m", mon_addr, "-p", pool, *cmd])
+    check(code == 0, f"rbd {' '.join(cmd)} exited {code}")
+    return buf.getvalue()
+
+
+def rbd_phase(smi: str, backend: str = "cuda",
+              image_bytes: int = RBD_IMAGE_BYTES,
+              small_writes: int = RBD_SMALL_WRITES,
+              snap_writes: int = RBD_SNAP_WRITES,
+              journaled_bytes: int = RBD_JOURNALED_BYTES,
+              journaled_written: int = RBD_JOURNALED_WRITTEN) -> dict:
+    """Phase 5i: RBD images on phase 5c's RS k=8,m=3 pool (see the module
+    docstring). Returns the B1/B2 launches of each step;
+    ``backend="torch"`` runs the plain versions (a rehearsal on the CPU,
+    where no launch is counted and no signature is timed)."""
+    # the fused flush notes the cost of each new signature
+    os.environ.setdefault("CEPH_TPU_COST_ANALYSIS", "1")
+    from ceph_tpu_torch.ops import crc32c_cuda, gf_cuda, native_loader
+    from ceph_tpu_torch.qa.cluster import MiniCluster
+    from ceph_tpu_torch.services import rbd_mirror
+    from ceph_tpu_torch.services.rbd import RBD, Image
+    from ceph_tpu_torch.utils.config import g_conf
+    from ceph_tpu_torch.utils.device_telemetry import telemetry
+
+    t_phase = time.perf_counter()
+    on_card = backend == "cuda"
+    n_obj = image_bytes // RBD_OBJECT
+    rng = np.random.default_rng(SEED + 23)
+    model = bytearray(rng.integers(0, 256, image_bytes, dtype=np.uint8)
+                      .tobytes())
+    picks = rng.choice(image_bytes // RBD_BLOCK, small_writes + snap_writes,
+                       replace=False)
+    blobs = rng.integers(0, 256, (len(picks), RBD_BLOCK), dtype=np.uint8)
+    jdata = rng.integers(0, 256, journaled_written, dtype=np.uint8).tobytes()
+    walls, rates, launches, native_calls, cls_calls, engine = \
+        {}, {}, {}, {}, {}, {}
+    shapes: dict = {}
+    checks = []
+
+    def verify(cond: bool, what: str) -> None:
+        check(cond, f"5i: {what}")
+        checks.append(what)
+
+    def step(label, fn, nbytes=0):
+        gf_cuda.reset_launches()
+        crc32c_cuda.reset_launches()
+        native_loader.reset_calls()
+        calls: dict = {}
+        before = dict(handle.stats) if handle else {}
+        with _counted_cls_calls(calls):
+            t0 = time.perf_counter()
+            fn()
+            walls[label] = time.perf_counter() - t0
+        after = dict(handle.stats) if handle else {}
+        if nbytes:
+            rates[label] = nbytes / 1e9 / walls[label]
+        launches[label] = {"gf_matvec": gf_cuda.launches,
+                           "crc32c_rows": crc32c_cuda.launches}
+        native_calls[label] = native_loader.matvec_calls
+        cls_calls[label] = dict(sorted(calls.items()))
+        delta = {key: after.get(key, 0) - before.get(key, 0)
+                 for key in ("flushes", "host_flushes", "ops",
+                             "decode_ops", "decode_flushes")}
+        fused = delta["flushes"] - delta["host_flushes"]
+        engine[label] = {**delta, "fused_flushes": fused,
+                         "ops_per_flush": delta["ops"] / delta["flushes"]
+                         if delta["flushes"] else None}
+
+    def put(i: int) -> None:
+        off = int(picks[i]) * RBD_BLOCK
+        img.write(off, blobs[i].tobytes())
+
+    def read_head(label: str) -> None:
+        view = memoryview(model)
+
+        def one(i):
+            got = img.read(i * RBD_OBJECT, RBD_OBJECT)
+            verify(got == view[i * RBD_OBJECT:(i + 1) * RBD_OBJECT],
+                   f"{label} read of object {i} equals the host model")
+        _threaded(one, n_obj, CLUSTER_CLIENTS)
+
+    t_boot = time.perf_counter()
+    with _heartbeat_knobs(g_conf(), CLUSTER_GRACE), _recorded_costs(shapes), \
+            MiniCluster(n_osds=CLUSTER_OSDS) as cluster:
+        boot_s = time.perf_counter() - t_boot
+        for pool in ("rbd_ec", "rbd_mirror_ec"):
+            cluster.create_ec_pool(pool, k=K, m=M, plugin="isa",
+                                   technique="reed_sol_van",
+                                   pg_num=CLUSTER_PG_NUM, backend=backend)
+        rados = cluster.client()
+        ioctx, dst_ioctx = (rados.open_ioctx(p)
+                            for p in ("rbd_ec", "rbd_mirror_ec"))
+        ioctx.op_timeout = dst_ioctx.op_timeout = 600.0
+        # an OSD attaches to the shared engine when it makes its first PG
+        # of the pool
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                handle = _engine_handle(cluster)
+                break
+            except AssertionError:
+                verify(time.monotonic() < deadline, "an OSD attached to "
+                       "the engine within 60 s")
+                time.sleep(0.1)
+        img = None
+
+        def fill():
+            # (a) the image, then its objects from 8 threads. The striper
+            # keeps the image's data size as a read-max-write on the
+            # handle: the last object goes first, so every later max is a
+            # no-op and no racing write can store a smaller size
+            nonlocal img
+            img = RBD(ioctx).create("disk", image_bytes)
+            last = image_bytes - RBD_OBJECT
+            img.write(last, bytes(model[last:]))
+            _threaded(lambda i: img.write(
+                i * RBD_OBJECT, bytes(model[i * RBD_OBJECT:
+                                            (i + 1) * RBD_OBJECT])),
+                n_obj - 1, CLUSTER_CLIENTS)
+
+        step("fill", fill, image_bytes)
+
+        # (b) 4 KiB overwrites from 8 threads: partial-stripe RMW
+        step("small_writes", lambda: _threaded(put, small_writes,
+                                               CLUSTER_CLIENTS),
+             small_writes * RBD_BLOCK)
+        for i in range(small_writes):
+            off = int(picks[i]) * RBD_BLOCK
+            model[off:off + RBD_BLOCK] = blobs[i].tobytes()
+        snap_model = bytes(model)
+
+        def snapshot_writes():
+            # (c) one writer: a head write's copy-on-write check, copy and
+            # header update are not atomic across threads of one handle
+            img.snap_create("s1")
+            for i in range(small_writes, small_writes + snap_writes):
+                put(i)
+
+        step("snap_writes", snapshot_writes, snap_writes * RBD_BLOCK)
+        for i in range(small_writes, small_writes + snap_writes):
+            off = int(picks[i]) * RBD_BLOCK
+            model[off:off + RBD_BLOCK] = blobs[i].tobytes()
+        verify(model != bytearray(snap_model), "the snapshot writes changed "
+               "the head")
+
+        def clean_reads():
+            # (d) the head, then the snapshot, each whole
+            read_head("head")
+            verify(img.snap_read("s1") == snap_model,
+                   "snapshot s1 read equals the host model")
+
+        step("reads", clean_reads, 2 * image_bytes)
+
+        # (e) the highest OSD killed, the head read degraded, revived
+        victim = CLUSTER_OSDS - 1
+        epoch = cluster.epoch()
+        t0 = time.perf_counter()
+        with _heartbeat_knobs(g_conf(), FAST_DEATH):
+            cluster.kill_osd(victim)
+            cluster.wait_for_osd_down(victim, timeout=60)
+        down_s = time.perf_counter() - t0
+        rados.wait_for_epoch(epoch + 1, timeout=30)
+        step("degraded_read", lambda: read_head("degraded"), image_bytes)
+        verify(engine["degraded_read"]["decode_ops"] > 0,
+               "the degraded reads decoded through the engine")
+
+        def recover():
+            cluster.revive_osd(victim)
+            cluster.wait_for_osds_up(timeout=60)
+            cluster.wait_for_clean(timeout=600)
+
+        step("recovery", recover)
+        step("final_read", lambda: read_head("final"), image_bytes)
+
+        passes = []
+
+        def mirror():
+            # (f) a journaled image mirrored into the second pool: the
+            # first pass bootstraps the empty image, the writes after it
+            # reach the mirror as journal events replayed
+            jimg = RBD(ioctx).create("jdisk", journaled_bytes,
+                                     journaling=True)
+            rbd_mirror.mirror_image_enable(ioctx, "jdisk")
+            daemon = rbd_mirror.MirrorDaemon(ioctx, dst_ioctx)
+            passes.append(daemon.sync_once())
+            for off in range(0, journaled_written, RBD_OBJECT):
+                jimg.write(off, jdata[off:off + RBD_OBJECT])
+            while passes[-1].get("jdisk") != 0 or len(passes) == 1:
+                verify(len(passes) < RBD_MIRROR_PASSES,
+                       f"the mirror caught up within {RBD_MIRROR_PASSES} "
+                       "passes")
+                passes.append(daemon.sync_once())
+            verify(sum(p["jdisk"] for p in passes) ==
+                   journaled_written // RBD_OBJECT,
+                   "the mirror replayed one event a write")
+            mirrored = Image(dst_ioctx, "jdisk")
+            verify(not mirrored.is_primary(), "the mirror is non-primary")
+            verify(mirrored.read(0, journaled_bytes) ==
+                   jimg.read(0, journaled_bytes), "the mirror equals the "
+                   "primary")
+            verify(jimg.read(0, journaled_written) == jdata,
+                   "the journaled image equals its writes")
+
+        step("mirror", mirror, journaled_written)
+
+        cli: dict = {}
+
+        def rbd_cli_step():
+            # (g) the rbd CLI against the cluster
+            for cmd in (("ls",), ("info", "disk"), ("snap", "ls", "disk")):
+                cli[" ".join(cmd)] = _rbd_cli(cluster.mon_addr, "rbd_ec",
+                                              *cmd)
+            info = json.loads(cli["info disk"])
+            verify(cli["ls"].split() == ["disk", "jdisk"], "rbd ls")
+            verify(info["size"] == image_bytes and info["snaps"] == ["s1"]
+                   and info["object_size"] == RBD_OBJECT, "rbd info disk")
+            verify(cli["snap ls disk"].split() == ["s1"], "rbd snap ls")
+
+        step("cli", rbd_cli_step)
+        stats = dict(handle.stats)
+        verify(stats["errors"] == 0 and stats["decode_errors"] == 0,
+               f"no engine errors: {stats}")
+        costs = telemetry().snapshot()["costs_by_signature"]
+
+    verify(native_calls["small_writes"] > 0,
+           "the 4 KiB writes re-encoded on the native host GF")
+    if on_card:
+        for label in ("snap_writes",):
+            w = launches[label]
+            verify(w["gf_matvec"] > 0 and w["crc32c_rows"] > 0,
+                   f"B1 and B2 launched in {label}: {w}")
+        verify(sum(e["fused_flushes"] for e in engine.values()) ==
+               sum(w["crc32c_rows"] for w in launches.values()),
+               "B2 launched once a fused flush")
+        verify(set(costs) == set(shapes) and costs,
+               "every fused-flush signature noted its cost")
+    out = {"phase": "rbd", "card": smi, "backend": backend,
+           "profile": "isa reed_sol_van k=8 m=3, stripe unit 4096",
+           "osds": CLUSTER_OSDS, "pg_num": CLUSTER_PG_NUM,
+           "image_bytes": image_bytes, "object_bytes": RBD_OBJECT,
+           "small_writes": small_writes, "snap_writes": snap_writes,
+           "write_bytes": RBD_BLOCK, "clients": CLUSTER_CLIENTS,
+           "journaled_bytes": journaled_bytes,
+           "journaled_written": journaled_written,
+           "killed": victim, "boot_s": boot_s, "down_s": down_s,
+           "walls_s": walls, "GBps": rates, "launches": launches,
+           "native_matvec_calls": native_calls, "cls_calls": cls_calls,
+           "engine": engine, "mirror_passes": passes, "cli": cli,
+           "costs_by_signature": _signature_rates(shapes, costs, on_card),
+           "stats": stats, "checks": len(checks),
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+#: the arguments that run phases 5c-5i alone (each the child process of
 #: :func:`phase_in_child`)
 CLUSTER_CHILD_ARG = "--cluster-phase"
 SCRUB_CHILD_ARG = "--scrub-phase"
@@ -2286,21 +2652,25 @@ CRIMSON_CHILD_ARG = "--crimson-phase"
 SERVING_CHILD_ARG = "--serving-phase"
 MGR_CHILD_ARG = "--mgr-phase"
 WITNESS_CHILD_ARG = "--witness-phase"
+RBD_CHILD_ARG = "--rbd-phase"
 #: with ``--witness-phase``: 5h's steps with neither the witness nor
 #: lock timing armed (what the wrappers cost, beside an armed run)
 WITNESS_UNARMED_ARG = "--unarmed"
 
 
-def phase_in_child(arg: str, phase: str, timeout: float = 900) -> dict:
+def phase_in_child(arg: str, phase: str, timeout: float = 900,
+                   env: dict | None = None) -> dict:
     """Run a cluster phase in a child process on the same card (this
-    script with ``arg``), so the cluster's ~150 threads and whatever they
-    leave behind stay out of the later phases' profiler sessions
-    (torch.profiler has returned empty sessions after them). The child
-    prints its ``phase`` line, echoed here, and exits non-zero on any
-    failed check. Returns that line."""
+    script with ``arg``, ``env`` added to this process's environment), so
+    the cluster's ~150 threads and whatever they leave behind stay out of
+    the later phases' profiler sessions (torch.profiler has returned
+    empty sessions after them). The child prints its ``phase`` line,
+    echoed here, and exits non-zero on any failed check. Returns that
+    line."""
     proc = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), arg],
-        capture_output=True, text=True, timeout=timeout)
+        capture_output=True, text=True, timeout=timeout,
+        env={**os.environ, **(env or {})})
     sys.stderr.write(proc.stderr)
     lines = [line for line in proc.stdout.splitlines()
              if line.startswith(f'{{"phase": "{phase}"')]
@@ -2379,6 +2749,7 @@ def verify_times(dev, mat, batch, hbm, profiled: bool) -> dict:
     the device time at its batch shape, in phase 5)."""
     from ceph_tpu_torch.bench.b5_ab import device_ms
     from ceph_tpu_torch.bench.ec_bench import time_cuda
+    from ceph_tpu_torch.ops import cost_model
     from ceph_tpu_torch.osd import scrub_engine as se
     nobj, n, l_b = batch.shape
     m = n - K
@@ -2387,14 +2758,13 @@ def verify_times(dev, mat, batch, hbm, profiled: bool) -> dict:
     padded[:nobj] = batch
     dev_batch = torch.from_numpy(padded).to(dev)
     fn = se.verify_fn(mat, K, l_b, nobj_b)
-    t_bytes = (nobj_b * n * l_b + nobj_b * m + nobj_b * n * 8) / hbm
-    t_ops = (2 * 64 * m * K * nobj_b * l_b
-             + 2 * 4096 * 32 * nobj_b * n * l_b // 512) / H100_INT8_OPS_PER_S
+    cost = cost_model.scrub_verify(m, K, nobj_b, l_b)
+    bound_ms, bound_by = cost_model.bound(cost["bytes_accessed"],
+                                          cost["flops"], hbm=hbm)
     out = {"objects": nobj, "objects_padded": nobj_b, "shard_bytes": l_b,
            "batch_bytes": nobj_b * n * l_b,
            "ms": time_cuda(lambda: fn(dev_batch), 20) * 1e3,
-           "bound_ms": max(t_bytes, t_ops) * 1e3,
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+           "bound_ms": bound_ms, "bound_by": bound_by}
     if profiled:
         out["device_ms"] = device_ms(lambda: fn(dev_batch), kernel="")
     return out
@@ -2407,7 +2777,7 @@ def scrub_phase(smi: str, backend: str = "cuda",
     ``backend="torch"`` runs the plain versions (a rehearsal on the CPU,
     where no launch is counted and no device time is taken)."""
     import tempfile
-    from ceph_tpu_torch.ops import crc32c_cuda, gf_cuda
+    from ceph_tpu_torch.ops import cost_model, crc32c_cuda, gf_cuda
     from ceph_tpu_torch.osd import scrub_engine as se
     from ceph_tpu_torch.osd.pg import pg_cid
     from ceph_tpu_torch.qa.cluster import MiniCluster
@@ -2533,7 +2903,8 @@ def scrub_phase(smi: str, backend: str = "cuda",
         check(np.array_equal(mism, cpu_mism) and np.array_equal(lin, cpu_lin),
               "verify of a gathered batch on the card differs from the CPU")
         card["equal_to_plain"] = True
-        verify_device = verify_times(dev, mat, batch, hbm_rate()[0],
+        verify_device = verify_times(dev, mat, batch,
+                                     cost_model.hbm_rate()[0],
                                      profiled=False)
     else:
         verify_device = "not measured (no card)"
@@ -2672,15 +3043,6 @@ def engine_profile_phase(dev, codec, sinfo) -> None:
 
 
 # -- Clay (kernels B3, B4, B5) ---------------------------------------------
-
-def _bound(nbytes: float, ops: float, hbm: float) -> tuple[float, str]:
-    """(least ms, what bounds it): bytes over the card's memory rate vs
-    GF multiplies as 8x8 bit-matrix products (128 ops each) at the
-    dense int8 tensor peak."""
-    t_bytes, t_ops = nbytes / hbm, ops / H100_INT8_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, \
-        "bytes" if t_bytes >= t_ops else "operations"
-
 
 def block_sparse_work(plan) -> tuple[int, int]:
     """(live (group, column) pairs, set coefficient bits) of a B5 plan,
@@ -2933,7 +3295,7 @@ def clay_times(dev, hbm, smi, st) -> dict:
     from ceph_tpu_torch.bench.b5_ab import device_ms
     from ceph_tpu_torch.bench.ec_bench import time_cuda
     from ceph_tpu_torch.models import clay_device
-    from ceph_tpu_torch.ops import (clay_cuda, gf_block_sparse,
+    from ceph_tpu_torch.ops import (clay_cuda, cost_model, gf_block_sparse,
                                     gf_block_sparse_cuda,
                                     gf_block_sparse_torch, gf_torch)
 
@@ -2962,7 +3324,8 @@ def clay_times(dev, hbm, smi, st) -> dict:
         want = enc_fn.plain(xs)
         check(torch.equal(enc_fn(xs), want) and torch.equal(kern(xs), want),
               f"B3 {label} differs from plain")
-        bound, by = _bound(12 * ssc * lanes, 128 * muls * lanes, hbm)
+        bound, by = cost_model.bound(12 * ssc * lanes, 128 * muls * lanes,
+                                     hbm=hbm)
         flat = xs.reshape(8 * ssc, lanes)
         # through the entry point (the span PREV_B3_MS was taken on), the
         # wrapper alone, and the profiler's device time of the kernel
@@ -2977,7 +3340,8 @@ def clay_times(dev, hbm, smi, st) -> dict:
             "library_ms": time_cuda(
                 lambda: gf_torch.matvec(enc_mat, flat), 1, 3) * 1e3,
             "bound_ms": bound, "bound_by": by,
-            "xor_floor_ms": 8 * bits * lanes / 32 / H100_INT32_OPS_PER_S
+            "xor_floor_ms": 8 * bits * lanes / 32
+            / cost_model.H100_INT32_OPS_PER_S
             * 1e3,
             "lanes": lanes, "launch_plan": clay_cuda.launch_plan(
                 lanes, 4, ssc, 8, clay_cuda._sm_count(dev))._asdict()}
@@ -3001,7 +3365,7 @@ def clay_times(dev, hbm, smi, st) -> dict:
         bits += int(np_ * np.unpackbits(tarr["dmat"]).sum() +
                     sum(np.unpackbits(t).sum() for t in terms))
     nbytes = (int(tarr["load"].sum()) + tarr["e"]) * ssc * L
-    bound, by = _bound(nbytes, 128 * muls * L, hbm)
+    bound, by = cost_model.bound(nbytes, 128 * muls * L, hbm=hbm)
     x2, mat2 = st["x2"], st["mat2"]
     check(torch.equal(tkern(c_full), tfn.plain(c_full)[sorted(key)]),
           "B4 wrapper differs from plain")
@@ -3017,7 +3381,8 @@ def clay_times(dev, hbm, smi, st) -> dict:
                  "library_ms": time_cuda(
                      lambda: gf_torch.matvec(mat2, x2), 1, 3) * 1e3,
                  "bound_ms": bound, "bound_by": by,
-                 "xor_floor_ms": 8 * bits * L / 32 / H100_INT32_OPS_PER_S
+                 "xor_floor_ms": 8 * bits * L / 32
+                 / cost_model.H100_INT32_OPS_PER_S
                  * 1e3,
                  "gf_muls_per_lane": muls, "coef_bits": bits,
                  "levels": tarr["n_levels"], "erased_nodes": sorted(key),
@@ -3044,8 +3409,8 @@ def clay_times(dev, hbm, smi, st) -> dict:
         lanes = xm.shape[1]
         nnz = int((mat != 0).sum())
         rows_in = int((mat != 0).any(axis=0).sum())
-        bound, by = _bound((rows_in + mat.shape[0]) * lanes,
-                           128 * nnz * lanes, hbm)
+        bound, by = cost_model.bound((rows_in + mat.shape[0]) * lanes,
+                                     128 * nnz * lanes, hbm=hbm)
         live, bits = block_sparse_work(plan)
         check(torch.equal(gf_block_sparse_cuda.matvec(plan, xm),
                           gf_block_sparse_torch.matvec(plan, xm)),
@@ -3068,7 +3433,7 @@ def clay_times(dev, hbm, smi, st) -> dict:
                 lambda: gf_torch.matvec(mat, xm), 1, 3) * 1e3,
             "bound_ms": bound, "bound_by": by,
             "xor_bound_ms": (8 * bits + 21 * live) * lanes / 32
-            / H100_INT32_OPS_PER_S * 1e3,
+            / cost_model.H100_INT32_OPS_PER_S * 1e3,
             "shape": list(mat.shape), "lanes": lanes, "nonzeros": nnz,
             "live_pairs": live, "coef_bits": bits,
             "cost_frac": plan.cost_frac}
@@ -3213,7 +3578,7 @@ def strip_times(dev, hbm, smi, st, b1_encode_ms: float) -> dict:
     beside its bytes bound, its XOR-count bound and its plain version,
     with B1's encode time at the same bytes (phase 5)."""
     from ceph_tpu_torch.bench.ec_bench import time_cuda
-    from ceph_tpu_torch.ops import gf256, gf_xor, gf_xor_torch
+    from ceph_tpu_torch.ops import cost_model, gf256, gf_xor, gf_xor_torch
     data, whole, gen = st["data"], st["whole"], st["gen"]
     words = data.shape[1] * 128
     cases = {"encode": (gf256.rs_matrix_isa(K, M), data)}
@@ -3227,21 +3592,23 @@ def strip_times(dev, hbm, smi, st, b1_encode_ms: float) -> dict:
         kern = gf_xor.get_kernel(mat, dev)
         rows = len(kern.schedule)
         xors = sum(len(t) for t in kern.schedule) - rows
-        t_bytes = (8 * K + rows) * words * 4 / hbm
-        t_ops = xors * words / H100_INT32_OPS_PER_S
+        nbytes = (8 * K + rows) * words * 4
+        bound_ms, bound_by = cost_model.bound(nbytes, int32_ops=xors * words,
+                                              hbm=hbm)
         ms = time_cuda(lambda: kern.encode_strips(x), 20) * 1e3
         out[label] = {
             "ms": ms, "GBps_in": 8 * K * words * 4 / ms / 1e6,
             "plain_ms": time_cuda(
                 lambda: gf_xor_torch.xor_strips(kern.schedule, x), 1,
                 3) * 1e3,
-            "bytes_bound_ms": t_bytes * 1e3, "xor_bound_ms": t_ops * 1e3,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_bound_ms": cost_model.bound(nbytes, hbm=hbm)[0],
+            "xor_bound_ms": cost_model.bound(0, int32_ops=xors * words,
+                                             hbm=hbm)[0],
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "xors_per_word": xors, "rows_out": rows}
     emit({"phase": "strip_times", "card": smi, "strips_in": list(data.shape),
           "b6": out, "b1_encode_ms_same_bytes": b1_encode_ms,
-          "int32_ops_per_s": H100_INT32_OPS_PER_S})
+          "int32_ops_per_s": cost_model.H100_INT32_OPS_PER_S})
     return out
 
 
@@ -3334,8 +3701,8 @@ def main() -> int:
     from ceph_tpu_torch.bench.b5_ab import device_ms
     from ceph_tpu_torch.bench.ec_bench import time_cuda
     from ceph_tpu_torch.models import instance
-    from ceph_tpu_torch.ops import (crc32c_cuda, crc32c_torch, cuda_build,
-                                    gf256, gf_cuda, gf_torch)
+    from ceph_tpu_torch.ops import (cost_model, crc32c_cuda, crc32c_torch,
+                                    cuda_build, gf256, gf_cuda, gf_torch)
     from ceph_tpu_torch.osd import ec_util
     from ceph_tpu_torch.utils import checksum
 
@@ -3347,7 +3714,7 @@ def main() -> int:
     # -- 1. device -----------------------------------------------------
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
-    hbm, hbm_src = hbm_rate()
+    hbm, hbm_src = cost_model.hbm_rate()
     emit({"phase": "device", "name": name,
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "hbm_bytes_per_s": hbm, "hbm_source": hbm_src,
@@ -3513,8 +3880,9 @@ def main() -> int:
         s = time_cuda(lambda: gf_cuda.matvec_device(mat, data), 20)
         check(torch.equal(gf_cuda.matvec_device(mat, data),
                           gf_torch.matvec(mat, data)), f"B1 {label} resident")
-        t_bytes = (K + mat.shape[0]) * RESIDENT_LANES / hbm
-        t_ops = 2 * 64 * mat.size * RESIDENT_LANES / H100_INT8_OPS_PER_S
+        cost = cost_model.gf_matvec(mat.shape[0], K, RESIDENT_LANES)
+        bound_ms, bound_by = cost_model.bound(cost["bytes_accessed"],
+                                              cost["flops"], hbm=hbm)
         bits = int(np.unpackbits(mat).sum())
         timings[label] = {
             "ms": s * 1e3, "prev_ms": PREV_B1_MS[label],
@@ -3523,17 +3891,17 @@ def main() -> int:
             "GBps": K * RESIDENT_LANES / s / 1e9,
             "plain_ms": time_cuda(lambda: gf_torch.matvec(mat, data), 2,
                                   3) * 1e3,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             # 8 plane-word XORs per set coefficient bit per 32 lanes
             "xor_floor_ms": 8 * bits * RESIDENT_LANES / 32
-            / H100_INT32_OPS_PER_S * 1e3,
+            / cost_model.H100_INT32_OPS_PER_S * 1e3,
             "coef_bits": bits, "launch_plan": gf_cuda.launch_plan(
                 RESIDENT_LANES, mat.shape[0])._asdict()}
     plain_b1 = timings["encode"]["plain_ms"] / 1e3
     n = RESIDENT_LANES
-    b1_bound_bytes = (K + M) * n / hbm
-    b1_bound_ops = 2 * 8 * M * 8 * K * n / H100_INT8_OPS_PER_S
+    cost = cost_model.gf_matvec(M, K, n)
+    b1_bound_ms, b1_bound_by = cost_model.bound(cost["bytes_accessed"],
+                                                cost["flops"], hbm=hbm)
     del data
     rows_x = torch.randint(0, 256, (main_rows, 512), dtype=torch.uint8,
                            device=dev, generator=gen_t)
@@ -3557,8 +3925,9 @@ def main() -> int:
                           kernel="crc32c_rows_kernel")
     plain_b2 = time_cuda(lambda: crc32c_torch.crc_rows(rows_x), 2, 3)
     # 512 bytes read and one int64 written a row
-    b2_bound_bytes = main_rows * (512 + 8) / hbm
-    b2_bound_ops = 2 * 4096 * 32 * main_rows / H100_INT8_OPS_PER_S
+    cost = cost_model.crc_rows(main_rows)
+    b2_bound_ms, b2_bound_by = cost_model.bound(cost["bytes_accessed"],
+                                                cost["flops"], hbm=hbm)
     del rows_x, b2_out
     # stage 2: the fused flush's combine of 1408 segments of 256 rows
     n_seg, seg_rows = OBJECTS * (K + M), OBJECT_BYTES // K // 512
@@ -3581,18 +3950,29 @@ def main() -> int:
         walls.append(time.perf_counter() - t0)
     flush_s = statistics.median(walls)
     emit(flush_profile(flush))
+    # the fused flush's analytic cost and roofline (cost_model.bench_fields,
+    # as the reference's bench.py:268-270 adds XLA's) beside its measured
+    # GB/s: the device step's arguments at this flush's shape (a meta
+    # tensor carries the data's shape; the cost reads no byte)
+    flush_cost = cost_model.bench_fields(
+        ec_util.fused_step,
+        (isa, torch.empty((K, OBJECTS * seg), dtype=torch.uint8,
+                          device="meta"), [seg] * OBJECTS,
+         -(-seg // crc32c_torch.ROW_BYTES) * crc32c_torch.ROW_BYTES, "cuda"),
+        OBJECTS * OBJECT_BYTES)
     emit({"phase": "times", "card": smi,
           "b1_resident_bytes": K * RESIDENT_LANES, "b1": timings,
           "b1_plain_ms": plain_b1 * 1e3,
-          "b1_bound_ms": max(b1_bound_bytes, b1_bound_ops) * 1e3,
+          "b1_bound_ms": b1_bound_ms,
           "b2_rows": main_rows, "b2_ms": b2_s * 1e3, "b2_prev_ms": PREV_B2_MS,
           "b2_wrapper_ms": b2_wrapper_s * 1e3, "b2_device_ms": b2_dev_ms,
           "b2_GBps": main_rows * 512 / b2_s / 1e9,
           "b2_plain_ms": plain_b2 * 1e3,
-          "b2_bound_ms": max(b2_bound_bytes, b2_bound_ops) * 1e3,
+          "b2_bound_ms": b2_bound_ms,
           "stage2_combine": stage2,
           "fused_flush_s": flush_s, "fused_flush_runs_s": walls,
           "fused_flush_GBps": OBJECTS * OBJECT_BYTES / flush_s / 1e9,
+          **flush_cost,
           "fused_flush_peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
 
     # -- 5 (scrub). the deep-scrub verify program at phase 5d's batch shape:
@@ -3632,7 +4012,7 @@ def main() -> int:
     # -- 13. the engine under torch.profiler ------------------------------
     engine_profile_phase(dev, codec, sinfo)
 
-    # -- 5c-5h. the cluster phases, each in a child process on the card,
+    # -- 5c-5i. the cluster phases, each in a child process on the card,
     # after every profiler session of this process: sessions after a
     # cluster child have come back empty (phase 8) --------------------------
     # 5c. the OSD chain: a MiniCluster pool on the card
@@ -3656,6 +4036,9 @@ def main() -> int:
     witness = phase_in_child(WITNESS_CHILD_ARG, "witness")
     emit(witness_vs_cluster(witness, threaded, smi))
     witness_launches = witness["launches"]
+    # 5i. RBD images on 5c's pool, the fused flush noting its costs
+    rbd_launches = phase_in_child(RBD_CHILD_ARG, "rbd", env={
+        "CEPH_TPU_COST_ANALYSIS": "1"})["launches"]
     # 5d. deep scrub over BlockStore
     scrub_launches = phase_in_child(SCRUB_CHILD_ARG, "scrub")["launches"]
 
@@ -3666,9 +4049,7 @@ def main() -> int:
          "replaces": "ceph_tpu/ops/gf_pallas.py:71",
          "launches": launches["gf_matvec"], "max_abs_err": b1_err,
          "ms": timings["encode"]["ms"], "plain_ms": plain_b1 * 1e3,
-         "bound_ms": max(b1_bound_bytes, b1_bound_ops) * 1e3,
-         "bound_by": "bytes" if b1_bound_bytes >= b1_bound_ops
-         else "operations",
+         "bound_ms": b1_bound_ms, "bound_by": b1_bound_by,
          "library_ms": None, "pass": True,
          "device_ms": timings["encode"]["device_ms"],
          "cluster_launches": {step: n["gf_matvec"] for step, n
@@ -3681,6 +4062,8 @@ def main() -> int:
                           in mgr_launches.items()},
          "witness_launches": {step: n["gf_matvec"] for step, n
                               in witness_launches.items()},
+         "rbd_launches": {step: n["gf_matvec"] for step, n
+                          in rbd_launches.items()},
          "scrub_launches": {step: n["gf_matvec"] for step, n
                             in scrub_launches.items()},
          "decode": {label: {key: timings[label][key] for key in
@@ -3691,9 +4074,7 @@ def main() -> int:
          "replaces": "ceph_tpu/ops/crc32c_device.py:165",
          "launches": launches["crc32c_rows"], "max_abs_err": b2_err,
          "ms": b2_s * 1e3, "plain_ms": plain_b2 * 1e3,
-         "bound_ms": max(b2_bound_bytes, b2_bound_ops) * 1e3,
-         "bound_by": "bytes" if b2_bound_bytes >= b2_bound_ops
-         else "operations",
+         "bound_ms": b2_bound_ms, "bound_by": b2_bound_by,
          "library_ms": None, "pass": True,
          "wrapper_ms": b2_wrapper_s * 1e3, "device_ms": b2_dev_ms,
          "cluster_launches": {step: n["crc32c_rows"] for step, n
@@ -3706,6 +4087,8 @@ def main() -> int:
                           in mgr_launches.items()},
          "witness_launches": {step: n["crc32c_rows"] for step, n
                               in witness_launches.items()},
+         "rbd_launches": {step: n["crc32c_rows"] for step, n
+                          in rbd_launches.items()},
          "scrub_launches": {step: n["crc32c_rows"] for step, n
                             in scrub_launches.items()}},
     ] + clay + [
@@ -3732,6 +4115,8 @@ if __name__ == "__main__":
         raise SystemExit(child_main(serving_phase))
     if MGR_CHILD_ARG in sys.argv[1:]:
         raise SystemExit(child_main(mgr_phase))
+    if RBD_CHILD_ARG in sys.argv[1:]:
+        raise SystemExit(child_main(rbd_phase))
     if WITNESS_CHILD_ARG in sys.argv[1:]:
         armed = WITNESS_UNARMED_ARG not in sys.argv[1:]
         raise SystemExit(child_main(

@@ -20,9 +20,12 @@ window and flush-threshold pushes through the config mid-burst with
 bytes equal to the plain versions, ``device_trace`` names B1 and B2, and a
 second process counts the built kernel libraries as build-ledger hits.
 The lock witness sees a device synchronize, an event's and a stream's
-wait under a lock, and a witness-armed ``backend=cuda`` pool leaves no
-finding outside the port's baseline. Every test here needs an NVIDIA GPU
-and skips without one.
+wait and a copy from the card to the host under a lock, and a
+witness-armed ``backend=cuda`` pool leaves no finding outside the port's
+baseline. The ``native`` host GF equals the numpy oracle and B1 on the
+card's host, and an RBD image on a ``backend=cuda`` ISA k=8,m=3 pool
+takes ``chip_smoke.py`` phase 5i's steps (a) and (e) at a small size.
+Every test here needs an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -840,3 +843,83 @@ def test_witness_armed_cuda_cluster_clean(cuda, witness):
     rep = witness.report()
     assert rep["edges"] > 0
     assert witness.unacknowledged(rep) == [], rep["blocking"]
+
+
+def test_witness_sees_the_copy_to_the_host(cuda, witness):
+    """A copy from the card to the host (``backend.device_get``, and
+    ``backend.to_host`` of a card tensor) under a witnessed lock is a
+    ``device_barrier`` finding; a CPU tensor's ``to_host`` is no copy."""
+    x = torch.arange(1 << 16, device=cuda, dtype=torch.int32)
+    with witness.make_lock("cuda.host_copy"):
+        got = backend.to_host(x * 3)
+    with witness.make_lock("cpu.view"):
+        backend.to_host(torch.zeros(4))
+    assert np.array_equal(got, np.arange(1 << 16, dtype=np.int32) * 3)
+    got = {(v["kind"], v["lock"]) for v in witness.report()["blocking"]}
+    assert got == {("device_barrier", "cuda.host_copy")}, got
+
+
+@pytest.mark.parametrize("m,k,n", [(3, 8, 1 << 20), (4, 12, 4097),
+                                   (11, 32, 333)])
+def test_native_matches_numpy_and_b1(cuda, m, k, n):
+    """The ``native`` host GF on the card's host: bit-exact against the
+    numpy oracle and against B1 on the card."""
+    from ceph_tpu_torch.ops import native_loader
+    mat = _bytes(40 + m, m, k)
+    data = _bytes(50 + k, k, n)
+    got = native_loader.matvec(mat, data)
+    assert np.array_equal(got, gf256.gf_matvec_chunks(mat, data))
+    on_card = gf_cuda.matvec_device(mat, torch.from_numpy(data).to(cuda))
+    assert np.array_equal(got, on_card.cpu().numpy())
+    via = backend.matvec(mat, torch.from_numpy(data).to(cuda), "native")
+    assert via.device.type == "cuda"
+    assert np.array_equal(via.cpu().numpy(), got)
+
+
+def test_rbd_image_on_cuda_fill_and_degraded_read(cuda):
+    """Phase 5i's steps (a) and (e) at a small size: an 8 MiB RBD image on
+    a ``backend=cuda`` ISA k=8,m=3 pool of 12 OSDs filled with 1 MiB
+    writes (re-encoded on the host twin's native GF), the highest OSD
+    killed, the image read degraded (the engine decodes), the OSD revived
+    and the image read again, each read equal to the host model."""
+    from ceph_tpu_torch.ops import native_loader
+    from ceph_tpu_torch.qa.cluster import MiniCluster
+    from ceph_tpu_torch.services.rbd import RBD
+    from ceph_tpu_torch.utils.config import g_conf
+    conf = g_conf()
+    old = {k: conf[k] for k in ("osd_heartbeat_interval",
+                                "osd_heartbeat_grace")}
+    size, obj = 8 << 20, 1 << 20
+    model = _bytes(77, size).tobytes()
+    try:
+        with MiniCluster(n_osds=12) as cluster:
+            cluster.create_ec_pool("rbd_cu", k=8, m=3, plugin="isa",
+                                   technique="reed_sol_van", pg_num=8,
+                                   backend="cuda")
+            io = cluster.client().open_ioctx("rbd_cu")
+            io.op_timeout = 120.0
+            img = RBD(io).create("disk", size)
+            native_loader.reset_calls()
+            for off in range(0, size, obj):
+                img.write(off, model[off:off + obj])
+            assert native_loader.matvec_calls > 0
+            assert img.read(0, size) == model
+            conf.set("osd_heartbeat_interval", 0.25)
+            conf.set("osd_heartbeat_grace", 1.0)
+            cluster.kill_osd(11)
+            cluster.wait_for_osd_down(11, timeout=30)
+            assert img.read(0, size) == model
+            stats = [o._device_engine.stats for o in cluster.osds.values()
+                     if o._device_engine is not None]
+            assert max(s["decode_ops"] for s in stats) > 0, stats
+            cluster.revive_osd(11)
+            cluster.wait_for_osds_up(timeout=60)
+            cluster.wait_for_clean(timeout=120)
+            assert img.read(0, size) == model
+            stats = [o._device_engine.stats for o in cluster.osds.values()
+                     if o._device_engine is not None]
+            assert max(s["errors"] + s["decode_errors"]
+                       for s in stats) == 0, stats
+    finally:
+        for k, v in old.items():
+            conf.set(k, v)

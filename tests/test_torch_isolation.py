@@ -112,7 +112,16 @@ def test_scan_covers_the_port():
                  "ceph_tpu_torch/mgr/balancer.py",
                  "ceph_tpu_torch/mgr/progress.py",
                  "ceph_tpu_torch/mgr/telemetry.py",
-                 "ceph_tpu_torch/mgr/dashboard.py"):
+                 "ceph_tpu_torch/mgr/dashboard.py",
+                 "ceph_tpu_torch/ops/cost_model.py",
+                 "ceph_tpu_torch/ops/native.py",
+                 "ceph_tpu_torch/client/striper.py",
+                 "ceph_tpu_torch/cls/__init__.py",
+                 "ceph_tpu_torch/cls/classes.py",
+                 "ceph_tpu_torch/services/journal.py",
+                 "ceph_tpu_torch/services/rbd.py",
+                 "ceph_tpu_torch/services/rbd_mirror.py",
+                 "ceph_tpu_torch/tools/rbd_cli.py"):
         assert must in rel
 
 

@@ -9,7 +9,8 @@ Counterparts of the 20 tests of ``tests/test_lock_witness.py``:
   own locks) is reported as a cycle without the test hanging;
 - blocking-under-lock detection covers the port's device barriers
   (``torch.cuda.synchronize``, ``torch.cuda.Event.synchronize``,
-  ``torch.cuda.Stream.synchronize``), fsync, the blocking asok
+  ``torch.cuda.Stream.synchronize``, the copy from the card to the host
+  ``ops/backend.device_get``), fsync, the blocking asok
   round-trip, and ``Condition.wait`` under a foreign lock;
 - witness-armed port MiniCluster bursts (threaded, blockstore group
   commit, crimson; ``backend=torch``) report zero unacknowledged
@@ -39,6 +40,7 @@ import torch
 from ceph_tpu.analysis import lock_witness as ref_lw
 from ceph_tpu_torch.analysis import linters
 from ceph_tpu_torch.analysis import lock_witness as lw
+from ceph_tpu_torch.ops import backend as backend_mod
 from ceph_tpu_torch.utils import admin_socket as asok_mod
 
 
@@ -82,20 +84,24 @@ def _run_bounded(fn, timeout=15.0):
     assert done, f"scenario wedged (>{timeout}s): watchdog tripped"
 
 
-#: the five hooked callables: (owner, attribute)
+#: the six hooked callables: (owner, attribute)
 HOOKS = ((os, "fsync"), (asok_mod, "asok_command"),
          (torch.cuda, "synchronize"), (torch.cuda.Event, "synchronize"),
-         (torch.cuda.Stream, "synchronize"))
+         (torch.cuda.Stream, "synchronize"), (backend_mod, "device_get"))
 
 
 def _barrier_calls():
-    """The port's three device waits, called without a card: each raises
-    (no CUDA in this torch, or a stand-in self), after the hook ran."""
+    """The port's four device waits, called without a card: the three
+    explicit waits raise (no CUDA in this torch, or a stand-in self)
+    after the hook ran; the copy to the host (the counterpart of the
+    reference's hooked ``jax.device_get``) copies a CPU tensor."""
     return {"torch.cuda.synchronize": torch.cuda.synchronize,
             "Event.synchronize":
                 lambda: torch.cuda.Event.synchronize(object()),
             "Stream.synchronize":
-                lambda: torch.cuda.Stream.synchronize(object())}
+                lambda: torch.cuda.Stream.synchronize(object()),
+            "backend.device_get":
+                lambda: backend_mod.device_get(torch.zeros(4))}
 
 
 # -- off = zero wrappers ------------------------------------------------
@@ -281,6 +287,22 @@ def test_device_barrier_outside_lock_clean(witness):
     assert lw.report()["blocking"] == []
 
 
+def test_host_view_of_a_cpu_tensor_is_no_barrier(witness):
+    """``backend.to_host`` of a CPU tensor is its own memory, no copy
+    from the card: clean under a lock (the host twin's codecs take it
+    under ``pg.lock``), while the same tensor through ``device_get`` is a
+    finding, as the reference's hooked ``jax.device_get`` is on its CPU
+    backend."""
+    with lw.make_lock("pg.lock"):
+        view = backend_mod.to_host(torch.arange(4))
+    assert view.tolist() == [0, 1, 2, 3]
+    assert lw.report()["blocking"] == []
+    with lw.make_lock("pg.lock"):
+        backend_mod.device_get(torch.arange(4))
+    assert [(v["kind"], v["lock"]) for v in lw.report()["blocking"]] == \
+        [("device_barrier", "pg.lock")]
+
+
 def test_asok_roundtrip_under_lock_flagged(witness):
     from ceph_tpu_torch.utils.admin_socket import AdminSocket, asok_command
     asok = AdminSocket("witness-test")
@@ -375,8 +397,21 @@ def _foreign_wait(mod):
             cv.wait(0.01)
 
 
+def _host_copy(mod):
+    """A copy from the device to the host under a lock: the reference's
+    ``jax.device_get``, the port's ``backend.device_get``."""
+    if mod is ref_lw:
+        import jax
+        import jax.numpy as jnp
+        get, x = jax.device_get, jnp.arange(4)
+    else:
+        get, x = backend_mod.device_get, torch.arange(4)
+    with mod.make_lock("engine.retire"):
+        get(x)
+
+
 SCENARIOS = {"abba": _abba, "self_nest": _self_nest, "fsync": _fsync,
-             "foreign_wait": _foreign_wait}
+             "foreign_wait": _foreign_wait, "host_copy": _host_copy}
 
 
 def _keys(mod, scenario, tmp_path) -> tuple[list, list]:
