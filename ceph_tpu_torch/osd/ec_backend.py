@@ -1208,6 +1208,43 @@ class ECBackend(PGBackend):
         decoded = self._decode(pg, chunks, want)
         return self._chunks_to_logical(decoded, size)
 
+    def read_object_current(self, pg: PG, oid: str) -> bytes | None:
+        """The object as the next op of its PG sees it, or None when it
+        does not exist: the committed shards with every in-flight write
+        of the object laid over them in version order (the ExtentCache
+        overlay the partial-write RMW takes). An object class's method
+        reads the whole object, changes it and writes it back under
+        ``pg.lock``; on a device backend a write commits only after its
+        engine flush, with the lock released, so a method that read the
+        committed shards alone would undo the writes still in flight
+        (concurrent ``rgw.bucket_add`` calls lost index entries)."""
+        snap = pg.extent_cache.snapshot(oid)
+        if not len(snap):
+            try:
+                return self.read_object(pg, oid)
+            except (NoSuchObject, NoSuchCollection):
+                return None
+        want = list(range(self.k))
+        try:
+            chunks, attrs = self._read_shards(
+                pg, oid, want, accept_versions=snap.versions())
+        except (NoSuchObject, NoSuchCollection):
+            base, base_ver = None, 0
+        else:
+            base_ver = int.from_bytes(attrs.get("v", b""), "little")
+            if not all(i in chunks for i in want):
+                chunks = self._decode(pg, chunks, want)
+            base = self._chunks_to_logical({i: chunks[i] for i in want},
+                                           self._attr_size(attrs))
+        removed = snap.removed_after(base_ver)
+        if removed or (removed is None and base is None):
+            return None
+        base = base or b""
+        window = bytearray(snap.effective_size(len(base), base_ver))
+        window[:len(base)] = base[:len(window)]
+        snap.overlay(window, 0, base_ver)
+        return bytes(window)
+
     def read_object_async(self, pg: PG, oid: str,
                           cont: Callable[[bytes | None,
                                           Exception | None],

@@ -66,6 +66,12 @@ class ExtentSnapshot:
                 e.new_size if e.full else max(size, e.new_size))
         return size
 
+    def removed_after(self, base_version: int) -> bool | None:
+        """Whether the newest entry newer than ``base_version`` removes
+        the object (True) or writes it (False); None when none is."""
+        newer = [e for e in self._entries if e.version > base_version]
+        return newer[-1].remove if newer else None
+
     def covers(self, lo: int, hi: int) -> bool:
         ivals = []
         for e in self._entries:

@@ -2109,10 +2109,16 @@ class OSD:
                 # ops of this PG (we hold pg.lock); a mutation goes
                 # back out through the normal versioned write path
                 from ceph_tpu_torch import cls as cls_mod
-                try:
-                    cur = bytes(be.read_object(pg, msg.oid))
-                except (NoSuchObject, NoSuchCollection):
-                    cur = None
+                if isinstance(be, ECBackend):
+                    # with this object's in-flight writes laid over
+                    # the committed shards (a device pool's writes
+                    # commit after the lock is released)
+                    cur = be.read_object_current(pg, msg.oid)
+                else:
+                    try:
+                        cur = bytes(be.read_object(pg, msg.oid))
+                    except (NoSuchObject, NoSuchCollection):
+                        cur = None
                 code, out, new_obj = cls_mod.call(
                     msg.cls, msg.method, msg.data, cur)
                 if code < 0:

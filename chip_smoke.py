@@ -98,8 +98,8 @@ Phases, each printing one JSON line:
    limit. Kernel launch counts are zeroed before and read after each
    step. The phase runs in a child process on the same card (this script
    with ``--cluster-phase``), so the cluster's threads stay out of this
-   process's profiler sessions, after phase 13 with 5e, 5f, 5g, 5h, 5i
-   and 5d;
+   process's profiler sessions, after phase 13 with 5e, 5f, 5g, 5h, 5i,
+   5j and 5d;
 5d. scrub: deep scrub on the card over the durable store, 5c's
    deployment on BlockStore (the BlueStore role; its data files in a
    temporary directory under ``build/scrub/``): 12 OSDs, the ISA k=8,m=3
@@ -126,7 +126,7 @@ Phases, each printing one JSON line:
    second, batches and objects a batch, and B1 and B2 launches by step
    (counts zeroed before and read after each step). It runs in a child
    process like 5c (``--scrub-phase``), which takes no profiler session,
-   and it runs last. The cluster children (5c, 5e, 5f, 5g, 5h, 5i, 5d) run
+   and it runs last. The cluster children (5c, 5e, 5f, 5g, 5h, 5i, 5j, 5d) run
    after phase 13: profiler sessions in this process after a cluster child
    have come back empty (phase 8). The ``scrub_times`` line, in
    phase 5, gives the verify program's events and profiler device ms at
@@ -246,6 +246,41 @@ Phases, each printing one JSON line:
    roofline GB/s beside its measured GB/s (its device step re-run on the
    card at the recorded shape). Runs in a child process
    (``--rbd-phase``);
+5j. rgw: the RADOS gateway (``services/rgw.py``, ``rgw_lc.py``,
+   ``rgw_sync.py`` over ``client/striper.py`` and the ``rgw`` object
+   class) on 5c's deployment (12 threaded OSDs on memstore, the ISA
+   k=8,m=3 ``backend=cuda`` pool, ``pg_num=32``, one shared engine, a
+   20 s grace) and a replicated pool (size 3, ``pg_num`` 8) for the
+   multisite source, with ``CEPH_TPU_COST_ANALYSIS=1``. ``RGWServer``
+   serves the EC pool with SigV4 credentials; every S3 request is signed
+   with the port's ``sign_request`` and sent over HTTP to 127.0.0.1.
+   Sizes from Ceph's RGW defaults (an object of ``rgw_obj_stripe_size``,
+   4 MiB) and the AWS CLI's multipart chunk (8 MiB), cut to 5i's scale:
+   (a) a bucket and 64 objects of 4 MiB PUT from 8 threads; (b) a
+   multipart upload of 64 MiB in 8 parts from 4 threads, completed; (c)
+   a listing paged 16 keys at a time that walks every key, then every
+   object GET from 8 threads; (d) the highest OSD killed (the
+   ``fast_death`` knobs until it is down), every object GET degraded,
+   the OSD revived, ``wait_for_clean``, every object GET again; (e)
+   Swift TempAuth, the container listing of the same bucket, one
+   object's GET and HEAD; (f) 16 objects of 1 MiB under ``tmp/``, a
+   lifecycle rule expiring ``tmp/`` after one day of ``RGW_DAY_S``
+   seconds, one ``LifecycleProcessor.process``; (g) a ``zone_log``
+   gateway on the replicated pool writes 8 objects of 4 MiB,
+   ``RGWSyncAgent`` into the EC gateway full-syncs them, one object is
+   overwritten and one deleted, passes run until one applies nothing,
+   then ``trim_applied``. Checked: every GET byte for byte with its etag
+   the md5 (the multipart object's the ``md5-8`` form); the listing
+   complete and in order; B1 launched in (d)'s degraded GETs and the
+   engine decoded; native matvec calls in (a) (the host twin's RMW);
+   (f) expired exactly the 16 and the listing no longer shows them;
+   (g)'s destination listing and bytes equal to the source's; no engine
+   error and no HTTP 5xx. The ``rgw`` line prints each step's wall and
+   GB/s, B1 and B2 launches, native matvec calls, object-class calls by
+   class and method, fused and host flushes and ops a flush, HTTP
+   requests by method and status, the sync passes and each noted
+   signature's cost beside its measured GB/s. Runs in a child process
+   (``--rgw-phase``);
 6. Clay kernels against their plain versions on the card, byte-exact: B3
    and B4 over k=8,m=4,d=11, k=4,m=2 and k=4,m=3,d=6 (virtual nodes) at
    ragged L (B3 also at 64 and 32 Ki lanes, its short form; B3 and B4 from
@@ -2644,7 +2679,430 @@ def rbd_phase(smi: str, backend: str = "cuda",
     return out
 
 
-#: the arguments that run phases 5c-5i alone (each the child process of
+#: phase 5j's sizes, from Ceph's documented RGW defaults (an object of
+#: ``rgw_obj_stripe_size``, 4 MiB) and the AWS CLI's default multipart
+#: chunk (8 MiB), cut to phase 5i's scale: 64 objects of 4 MiB (256 MiB,
+#: 5i's image) from 8 client threads; one 64 MiB object in 8 parts from 4
+#: threads; a listing paged 16 keys at a time; 16 objects of 1 MiB under
+#: ``tmp/`` for the lifecycle rule, whose day is compressed to
+#: ``RGW_DAY_S``; 8 objects of 4 MiB in the multisite source zone
+RGW_OBJECT = 4 << 20
+RGW_OBJECTS = 64
+RGW_MP_PART = 8 << 20
+RGW_MP_PARTS = 8
+RGW_MP_THREADS = 4
+RGW_PAGE = 16
+RGW_TMP = 16
+RGW_TMP_BYTES = 1 << 20
+RGW_ZONE = 8
+RGW_DAY_S = 0.5
+#: sync passes the destination zone may take to catch up
+RGW_SYNC_PASSES = 10
+#: the S3 access key and secret the gateway serves (Swift's TempAuth
+#: takes the same pair as its account and key)
+RGW_CREDS = ("AKCHIPSMOKE", "chip-smoke-secret")
+
+
+class _RGWClient:
+    """HTTP requests to an ``RGWServer`` on 127.0.0.1: S3 requests signed
+    with the port's ``sign_request`` (SigV4), and Swift requests; every
+    reply counted by method and status."""
+
+    def __init__(self, port: int, access: str, secret: str) -> None:
+        self.port, self.access, self.secret = port, access, secret
+        self.base = f"http://127.0.0.1:{port}"
+        self.counts: dict = {}
+        self._lock = threading.Lock()
+
+    def request(self, method: str, url: str, data: bytes | None = None,
+                headers: dict | None = None) -> tuple:
+        """(status, headers, body)."""
+        import urllib.error
+        import urllib.request
+        req = urllib.request.Request(url, data=data, method=method,
+                                     headers=headers or {})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                status, hdrs, body = resp.status, dict(resp.headers), \
+                    resp.read()
+        except urllib.error.HTTPError as exc:
+            status, hdrs, body = exc.code, dict(exc.headers), exc.read()
+        key = f"{method} {status}"
+        with self._lock:
+            self.counts[key] = self.counts.get(key, 0) + 1
+        return status, hdrs, body
+
+    def s3(self, method: str, path: str, data: bytes = b"",
+           query: str = "") -> tuple:
+        from ceph_tpu_torch.services.rgw import sign_request
+        headers = {"Host": f"127.0.0.1:{self.port}"}
+        headers.update(sign_request(method, path, query, headers, data,
+                                    self.access, self.secret))
+        url = self.base + path + (f"?{query}" if query else "")
+        return self.request(method, url, data or None, headers)
+
+
+def rgw_phase(smi: str, backend: str = "cuda",
+              n_obj: int = RGW_OBJECTS, obj_bytes: int = RGW_OBJECT,
+              mp_parts: int = RGW_MP_PARTS, mp_part: int = RGW_MP_PART,
+              n_tmp: int = RGW_TMP, tmp_bytes: int = RGW_TMP_BYTES,
+              n_zone: int = RGW_ZONE) -> dict:
+    """Phase 5j: the RADOS gateway over HTTP on phase 5c's RS k=8,m=3 pool
+    (see the module docstring). Returns the B1/B2 launches of each step;
+    ``backend="torch"`` runs the plain versions (a rehearsal on the CPU,
+    where no launch is counted, no signature is timed and step (d), the
+    kill, is left out: degraded reads under a kill can stall on the CPU,
+    in both packages, ROADMAP section C)."""
+    import hashlib
+    import re
+    import xml.etree.ElementTree as ET
+    os.environ.setdefault("CEPH_TPU_COST_ANALYSIS", "1")
+    from ceph_tpu_torch.ops import crc32c_cuda, gf_cuda, native_loader
+    from ceph_tpu_torch.qa.cluster import MiniCluster
+    from ceph_tpu_torch.services.rgw import RGWGateway, RGWServer
+    from ceph_tpu_torch.services.rgw_lc import LifecycleProcessor
+    from ceph_tpu_torch.services.rgw_sync import RGWSyncAgent
+    from ceph_tpu_torch.utils.config import g_conf
+    from ceph_tpu_torch.utils.device_telemetry import telemetry
+
+    t_phase = time.perf_counter()
+    on_card = backend == "cuda"
+    rng = np.random.default_rng(SEED + 25)
+    bulk = rng.integers(0, 256, n_obj * obj_bytes, dtype=np.uint8)
+    mp = rng.integers(0, 256, mp_parts * mp_part, dtype=np.uint8)
+    tmp = rng.integers(0, 256, n_tmp * tmp_bytes, dtype=np.uint8)
+    zone = rng.integers(0, 256, n_zone * obj_bytes, dtype=np.uint8)
+    models = {f"obj/{i:03d}": bulk[i * obj_bytes:(i + 1) * obj_bytes]
+              for i in range(n_obj)}
+    models["mp/big"] = mp
+    part_md5 = [hashlib.md5(mp[i * mp_part:(i + 1) * mp_part]).digest()
+                for i in range(mp_parts)]
+    etags = {k: hashlib.md5(v).hexdigest() for k, v in models.items()}
+    etags["mp/big"] = hashlib.md5(b"".join(part_md5)).hexdigest() + \
+        f"-{mp_parts}"
+    obj_keys = [f"obj/{i:03d}" for i in range(n_obj)]
+    keys = sorted(models)
+    walls, rates, launches, native_calls, cls_calls, engine, http = \
+        {}, {}, {}, {}, {}, {}, {}
+    shapes: dict = {}
+    checks = []
+
+    def verify(cond: bool, what: str) -> None:
+        check(cond, f"5j: {what}")
+        checks.append(what)
+
+    def step(label, fn, nbytes=0):
+        gf_cuda.reset_launches()
+        crc32c_cuda.reset_launches()
+        native_loader.reset_calls()
+        client.counts = {}
+        calls: dict = {}
+        before = dict(handle.stats)
+        with _counted_cls_calls(calls):
+            t0 = time.perf_counter()
+            fn()
+            walls[label] = time.perf_counter() - t0
+        after = dict(handle.stats)
+        if nbytes:
+            rates[label] = nbytes / 1e9 / walls[label]
+        launches[label] = {"gf_matvec": gf_cuda.launches,
+                           "crc32c_rows": crc32c_cuda.launches}
+        native_calls[label] = native_loader.matvec_calls
+        cls_calls[label] = dict(sorted(calls.items()))
+        http[label] = dict(sorted(client.counts.items()))
+        delta = {key: after.get(key, 0) - before.get(key, 0)
+                 for key in ("flushes", "host_flushes", "ops",
+                             "decode_ops", "decode_flushes")}
+        fused = delta["flushes"] - delta["host_flushes"]
+        engine[label] = {**delta, "fused_flushes": fused,
+                         "ops_per_flush": delta["ops"] / delta["flushes"]
+                         if delta["flushes"] else None}
+
+    def ok(reply, want: int, what: str) -> tuple:
+        verify(reply[0] == want, f"{what} answered {reply[0]}: "
+               f"{reply[2][:200]!r}")
+        return reply
+
+    def put(key: str, body) -> None:
+        reply = ok(client.s3("PUT", f"/bkt/{key}", bytes(body)), 200,
+                   f"PUT {key}")
+        verify(reply[1].get("ETag") == f'"{hashlib.md5(body).hexdigest()}"',
+               f"PUT {key}'s etag is its md5")
+
+    def get_all(label: str) -> None:
+        def one(i):
+            key = keys[i]
+            status, hdrs, body = client.s3("GET", f"/bkt/{key}")
+            verify(status == 200 and body == models[key].tobytes(),
+                   f"{label} GET {key} equals its model")
+            verify(hdrs.get("ETag") == f'"{etags[key]}"',
+                   f"{label} GET {key}'s etag")
+        _threaded(one, len(keys), CLUSTER_CLIENTS)
+
+    def listing(bucket: str) -> list:
+        seen, marker = [], ""
+        for _ in range(len(keys) + n_tmp + 2):
+            query = f"marker={marker}&max-keys={RGW_PAGE}" if marker \
+                else f"max-keys={RGW_PAGE}"
+            doc = ET.fromstring(ok(client.s3("GET", f"/{bucket}",
+                                             query=query), 200,
+                                   f"GET /{bucket}?{query}")[2])
+            page = [c.findtext("Key") for c in doc.findall("Contents")]
+            verify(len(page) <= RGW_PAGE, f"a page of /{bucket} holds "
+                   f"at most {RGW_PAGE} keys")
+            seen += page
+            if doc.findtext("IsTruncated") != "true":
+                return seen
+            marker = doc.findtext("NextMarker")
+        raise AssertionError(f"the listing of /{bucket} never ended")
+
+    t_boot = time.perf_counter()
+    access, secret = RGW_CREDS
+    with _heartbeat_knobs(g_conf(), CLUSTER_GRACE), _recorded_costs(shapes), \
+            MiniCluster(n_osds=CLUSTER_OSDS) as cluster:
+        boot_s = time.perf_counter() - t_boot
+        cluster.create_ec_pool("rgw_ec", k=K, m=M, plugin="isa",
+                               technique="reed_sol_van",
+                               pg_num=CLUSTER_PG_NUM, backend=backend)
+        cluster.create_pool("rgw_zone", pg_num=8, size=3)
+        rados = cluster.client()
+        io_ec, io_rep = (rados.open_ioctx(p) for p in ("rgw_ec", "rgw_zone"))
+        io_ec.op_timeout = io_rep.op_timeout = 600.0
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                handle = _engine_handle(cluster)
+                break
+            except AssertionError:
+                verify(time.monotonic() < deadline, "an OSD attached to "
+                       "the engine within 60 s")
+                time.sleep(0.1)
+        server = RGWServer(io_ec, auth={access: secret})
+        client = _RGWClient(server.start(), access, secret)
+        try:
+            def bucket_and_objects():
+                # (a) a bucket, then the objects from 8 threads
+                ok(client.s3("PUT", "/bkt"), 200, "PUT /bkt")
+                _threaded(lambda i: put(obj_keys[i], models[obj_keys[i]]),
+                          n_obj, CLUSTER_CLIENTS)
+
+            step("put", bucket_and_objects, n_obj * obj_bytes)
+
+            upload = {}
+
+            def multipart():
+                # (b) initiate, 8 parts from 4 threads, complete
+                doc = ok(client.s3("POST", "/bkt/mp/big", query="uploads"),
+                         200, "POST ?uploads")[2]
+                uid = ET.fromstring(doc).findtext("UploadId")
+                part_etags = {}
+
+                def part(i):
+                    reply = ok(client.s3(
+                        "PUT", "/bkt/mp/big",
+                        mp[i * mp_part:(i + 1) * mp_part].tobytes(),
+                        f"partNumber={i + 1}&uploadId={uid}"), 200,
+                        f"PUT part {i + 1}")
+                    part_etags[i + 1] = reply[1]["ETag"]
+
+                _threaded(part, mp_parts, RGW_MP_THREADS)
+                manifest = ("<CompleteMultipartUpload>" + "".join(
+                    f"<Part><PartNumber>{n}</PartNumber>"
+                    f"<ETag>{part_etags[n]}</ETag></Part>"
+                    for n in sorted(part_etags)) +
+                    "</CompleteMultipartUpload>").encode()
+                done = ok(client.s3("POST", "/bkt/mp/big", manifest,
+                                    f"uploadId={uid}"), 200,
+                          "POST ?uploadId (complete)")[2]
+                upload["etag"] = ET.fromstring(done).findtext(
+                    "ETag").strip('"')
+
+            step("multipart", multipart, mp_parts * mp_part)
+            verify(upload["etag"] == etags["mp/big"] and
+                   re.fullmatch(rf"[0-9a-f]{{32}}-{mp_parts}",
+                                upload["etag"]) is not None,
+                   "the multipart etag is the md5 of the parts' md5s, "
+                   f"-{mp_parts}")
+
+            listed = {}
+
+            def list_and_get():
+                # (c) a paged listing that walks every key, then every
+                # object from 8 threads
+                listed["keys"] = listing("bkt")
+                get_all("clean")
+
+            step("list_get", list_and_get, n_obj * obj_bytes +
+                 mp_parts * mp_part)
+            verify(listed["keys"] == keys, "the paged listing is complete "
+                   "and in order")
+
+            victim, down_s = None, None
+            if on_card:
+                # (d) the highest OSD killed, every object read degraded,
+                # revived, wait_for_clean, every object read again
+                victim = CLUSTER_OSDS - 1
+                epoch = cluster.epoch()
+                t0 = time.perf_counter()
+                with _fast_death_kill(cluster, g_conf()):
+                    cluster.kill_osd(victim)
+                    cluster.wait_for_osd_down(victim, timeout=60)
+                down_s = time.perf_counter() - t0
+                rados.wait_for_epoch(epoch + 1, timeout=30)
+                step("degraded_get", lambda: get_all("degraded"),
+                     n_obj * obj_bytes + mp_parts * mp_part)
+                verify(engine["degraded_get"]["decode_ops"] > 0,
+                       "the degraded GETs decoded through the engine")
+
+                def recover():
+                    cluster.revive_osd(victim)
+                    cluster.wait_for_osds_up(timeout=60)
+                    cluster.wait_for_clean(timeout=600)
+
+                step("recovery", recover)
+                step("final_get", lambda: get_all("final"),
+                     n_obj * obj_bytes + mp_parts * mp_part)
+
+            swift = {}
+
+            def swift_step():
+                # (e) TempAuth, the container listing of the same bucket,
+                # one object's GET and HEAD
+                auth = ok(client.request(
+                    "GET", f"{client.base}/auth/v1.0",
+                    headers={"X-Auth-User": f"{access}:user",
+                             "X-Auth-Key": secret}), 200, "TempAuth")
+                h = {"X-Auth-Token": auth[1]["X-Auth-Token"]}
+                url = f"{auth[1]['X-Storage-Url']}/bkt"
+                names = ok(client.request("GET", url, headers=h), 200,
+                           "Swift container GET")[2]
+                key = keys[-1]
+                got = ok(client.request("GET", f"{url}/{key}", headers=h),
+                         200, f"Swift GET {key}")
+                head = ok(client.request("HEAD", f"{url}/{key}", headers=h),
+                          200, f"Swift HEAD {key}")
+                swift.update(names=names.decode().split(), key=key,
+                             same=got[2] == models[key].tobytes(),
+                             etag=got[1].get("ETag"),
+                             head_etag=head[1].get("ETag"),
+                             head_len=head[1].get("Content-Length"))
+
+            step("swift", swift_step, obj_bytes)
+            verify(swift["names"] == keys, "the Swift container listing is "
+                   "the S3 bucket's")
+            verify(swift["same"] and swift["etag"] == swift["head_etag"] ==
+                   etags[swift["key"]] and
+                   swift["head_len"] == str(obj_bytes),
+                   "Swift GET and HEAD of one object")
+
+            expiry = {}
+
+            def lifecycle():
+                # (f) objects under tmp/, a rule expiring tmp/ after one
+                # (compressed) day, one lifecycle pass
+                tmp_keys = [f"tmp/{i:02d}" for i in range(n_tmp)]
+                _threaded(lambda i: put(tmp_keys[i], tmp[
+                    i * tmp_bytes:(i + 1) * tmp_bytes]), n_tmp,
+                    CLUSTER_CLIENTS)
+                verify(listing("bkt") == sorted(keys + tmp_keys),
+                       "the listing shows the tmp/ objects")
+                rule = (b"<LifecycleConfiguration><Rule><ID>tmp</ID>"
+                        b"<Filter><Prefix>tmp/</Prefix></Filter>"
+                        b"<Status>Enabled</Status><Expiration><Days>1"
+                        b"</Days></Expiration></Rule>"
+                        b"</LifecycleConfiguration>")
+                ok(client.s3("PUT", "/bkt", rule, "lifecycle"), 200,
+                   "PUT ?lifecycle")
+                time.sleep(RGW_DAY_S * 1.2)
+                expiry["stats"] = LifecycleProcessor(
+                    server.gateway, day_seconds=RGW_DAY_S).process()
+                expiry["after"] = listing("bkt")
+
+            step("lifecycle", lifecycle, n_tmp * tmp_bytes)
+            verify(expiry["stats"]["expired"] == n_tmp,
+                   f"the lifecycle pass expired exactly the {n_tmp} tmp/ "
+                   f"objects: {expiry['stats']}")
+            verify(expiry["after"] == keys, "the listing no longer shows "
+                   "the tmp/ objects")
+
+            passes = []
+            zone_keys = [f"z/{i:02d}" for i in range(n_zone)]
+            zone_model = {}
+
+            def multisite():
+                # (g) a zone-logging gateway on the replicated pool, synced
+                # into the EC gateway until a pass applies nothing
+                src = RGWGateway(io_rep, zone_log=True)
+                agent = RGWSyncAgent(src, server.gateway)
+                src.create_bucket("zone")
+                for i, key in enumerate(zone_keys):
+                    src.put_object("zone", key, zone[
+                        i * obj_bytes:(i + 1) * obj_bytes].tobytes())
+                passes.append(agent.sync_once())
+                src.put_object("zone", zone_keys[0], b"overwritten")
+                src.delete_object("zone", zone_keys[1])
+                while passes[-1].get("zone") != 0 or len(passes) == 1:
+                    verify(len(passes) < RGW_SYNC_PASSES, "the destination "
+                           f"caught up within {RGW_SYNC_PASSES} passes")
+                    passes.append(agent.sync_once())
+                passes.append({"trimmed": agent.trim_applied()})
+                for key in src.list_objects("zone"):
+                    zone_model[key] = src.get_object("zone", key)[0]
+                dst = listing("zone")
+                verify(dst == sorted(zone_model), "the destination zone "
+                       "lists the source's keys")
+                for key in dst:
+                    status, _, body = client.s3("GET", f"/zone/{key}")
+                    verify(status == 200 and body == zone_model[key],
+                           f"the destination's {key} equals the source's")
+
+            step("multisite", multisite, 2 * n_zone * obj_bytes)
+            verify(sum(p.get("zone", 0) for p in passes[1:-1]) == 2,
+                   "the incremental passes applied the overwrite and the "
+                   "delete")
+        finally:
+            server.stop()
+        stats = dict(handle.stats)
+        verify(stats["errors"] == 0 and stats["decode_errors"] == 0,
+               f"no engine errors: {stats}")
+        costs = telemetry().snapshot()["costs_by_signature"]
+
+    five = {label: {k: n for k, n in counts.items()
+                    if int(k.split()[1]) >= 500}
+            for label, counts in http.items()}
+    verify(not any(five.values()), f"no HTTP 5xx: {five}")
+    verify(native_calls["put"] > 0,
+           "the PUTs re-encoded on the native host GF (the RMW)")
+    if on_card:
+        verify(launches["degraded_get"]["gf_matvec"] > 0,
+               f"B1 launched in the degraded GETs: {launches}")
+        verify(sum(e["fused_flushes"] for e in engine.values()) ==
+               sum(w["crc32c_rows"] for w in launches.values()),
+               "B2 launched once a fused flush")
+        verify(set(costs) == set(shapes),
+               "every fused-flush signature noted its cost")
+    out = {"phase": "rgw", "card": smi, "backend": backend,
+           "profile": "isa reed_sol_van k=8 m=3, stripe unit 4096",
+           "osds": CLUSTER_OSDS, "pg_num": CLUSTER_PG_NUM,
+           "objects": n_obj, "object_bytes": obj_bytes,
+           "multipart": {"parts": mp_parts, "part_bytes": mp_part,
+                         "threads": RGW_MP_THREADS},
+           "page": RGW_PAGE, "tmp_objects": n_tmp, "tmp_bytes": tmp_bytes,
+           "day_s": RGW_DAY_S, "zone_objects": n_zone,
+           "clients": CLUSTER_CLIENTS, "killed": victim,
+           "boot_s": boot_s, "down_s": down_s, "walls_s": walls,
+           "GBps": rates, "launches": launches,
+           "native_matvec_calls": native_calls, "cls_calls": cls_calls,
+           "engine": engine, "http": http, "sync_passes": passes,
+           "lifecycle": expiry["stats"],
+           "costs_by_signature": _signature_rates(shapes, costs, on_card),
+           "stats": stats, "checks": len(checks),
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+#: the arguments that run phases 5c-5j alone (each the child process of
 #: :func:`phase_in_child`)
 CLUSTER_CHILD_ARG = "--cluster-phase"
 SCRUB_CHILD_ARG = "--scrub-phase"
@@ -2653,6 +3111,7 @@ SERVING_CHILD_ARG = "--serving-phase"
 MGR_CHILD_ARG = "--mgr-phase"
 WITNESS_CHILD_ARG = "--witness-phase"
 RBD_CHILD_ARG = "--rbd-phase"
+RGW_CHILD_ARG = "--rgw-phase"
 #: with ``--witness-phase``: 5h's steps with neither the witness nor
 #: lock timing armed (what the wrappers cost, beside an armed run)
 WITNESS_UNARMED_ARG = "--unarmed"
@@ -4012,7 +4471,7 @@ def main() -> int:
     # -- 13. the engine under torch.profiler ------------------------------
     engine_profile_phase(dev, codec, sinfo)
 
-    # -- 5c-5i. the cluster phases, each in a child process on the card,
+    # -- 5c-5j. the cluster phases, each in a child process on the card,
     # after every profiler session of this process: sessions after a
     # cluster child have come back empty (phase 8) --------------------------
     # 5c. the OSD chain: a MiniCluster pool on the card
@@ -4039,6 +4498,9 @@ def main() -> int:
     # 5i. RBD images on 5c's pool, the fused flush noting its costs
     rbd_launches = phase_in_child(RBD_CHILD_ARG, "rbd", env={
         "CEPH_TPU_COST_ANALYSIS": "1"})["launches"]
+    # 5j. the RADOS gateway over HTTP on 5c's pool
+    rgw_launches = phase_in_child(RGW_CHILD_ARG, "rgw", env={
+        "CEPH_TPU_COST_ANALYSIS": "1"})["launches"]
     # 5d. deep scrub over BlockStore
     scrub_launches = phase_in_child(SCRUB_CHILD_ARG, "scrub")["launches"]
 
@@ -4064,6 +4526,8 @@ def main() -> int:
                               in witness_launches.items()},
          "rbd_launches": {step: n["gf_matvec"] for step, n
                           in rbd_launches.items()},
+         "rgw_launches": {step: n["gf_matvec"] for step, n
+                          in rgw_launches.items()},
          "scrub_launches": {step: n["gf_matvec"] for step, n
                             in scrub_launches.items()},
          "decode": {label: {key: timings[label][key] for key in
@@ -4089,6 +4553,8 @@ def main() -> int:
                               in witness_launches.items()},
          "rbd_launches": {step: n["crc32c_rows"] for step, n
                           in rbd_launches.items()},
+         "rgw_launches": {step: n["crc32c_rows"] for step, n
+                          in rgw_launches.items()},
          "scrub_launches": {step: n["crc32c_rows"] for step, n
                             in scrub_launches.items()}},
     ] + clay + [
@@ -4117,6 +4583,8 @@ if __name__ == "__main__":
         raise SystemExit(child_main(mgr_phase))
     if RBD_CHILD_ARG in sys.argv[1:]:
         raise SystemExit(child_main(rbd_phase))
+    if RGW_CHILD_ARG in sys.argv[1:]:
+        raise SystemExit(child_main(rgw_phase))
     if WITNESS_CHILD_ARG in sys.argv[1:]:
         armed = WITNESS_UNARMED_ARG not in sys.argv[1:]
         raise SystemExit(child_main(

@@ -24,8 +24,9 @@ wait and a copy from the card to the host under a lock, and a
 witness-armed ``backend=cuda`` pool leaves no finding outside the port's
 baseline. The ``native`` host GF equals the numpy oracle and B1 on the
 card's host, and an RBD image on a ``backend=cuda`` ISA k=8,m=3 pool
-takes ``chip_smoke.py`` phase 5i's steps (a) and (e) at a small size.
-Every test here needs an NVIDIA GPU and skips without one.
+takes ``chip_smoke.py`` phase 5i's steps (a) and (e) at a small size; an
+RGW GET over HTTP on such a pool with one OSD down launches B1 and returns
+the PUT bytes (phase 5j's step (d)). Every test here needs an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -920,6 +921,68 @@ def test_rbd_image_on_cuda_fill_and_degraded_read(cuda):
                      if o._device_engine is not None]
             assert max(s["errors"] + s["decode_errors"]
                        for s in stats) == 0, stats
+    finally:
+        for k, v in old.items():
+            conf.set(k, v)
+
+
+def test_rgw_get_on_cuda_with_an_osd_down(cuda):
+    """Phase 5j's step (d) at a small size: 16 objects of 1 MiB PUT over
+    HTTP (SigV4) into an ``RGWServer`` on a ``backend=cuda`` ISA k=8,m=3
+    pool of 12 OSDs, the highest OSD killed, every object read back over
+    HTTP: the bytes and the md5 etag equal, the engine decodes and B1
+    launches."""
+    import hashlib
+    import urllib.request
+    from ceph_tpu_torch.qa.cluster import MiniCluster
+    from ceph_tpu_torch.services.rgw import RGWServer, sign_request
+    from ceph_tpu_torch.utils.config import g_conf
+    conf = g_conf()
+    old = {k: conf[k] for k in ("osd_heartbeat_interval",
+                                "osd_heartbeat_grace")}
+    objs = {f"o/{i:02d}": _bytes(78 + i, 1 << 20).tobytes()
+            for i in range(16)}
+    try:
+        with MiniCluster(n_osds=12) as cluster:
+            cluster.create_ec_pool("rgw_cu", k=8, m=3, plugin="isa",
+                                   technique="reed_sol_van", pg_num=8,
+                                   backend="cuda")
+            io = cluster.client().open_ioctx("rgw_cu")
+            io.op_timeout = 120.0
+            srv = RGWServer(io, auth={"AK": "sk"})
+            port = srv.start()
+
+            def s3(method, path, data=b""):
+                h = {"Host": f"127.0.0.1:{port}"}
+                h.update(sign_request(method, path, "", h, data, "AK", "sk"))
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}{path}", data=data or None,
+                    method=method, headers=h)
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    return resp.status, resp.headers["ETag"], resp.read()
+
+            try:
+                assert s3("PUT", "/b")[0] == 200
+                for key, body in objs.items():
+                    assert s3("PUT", f"/b/{key}", body)[0] == 200
+                conf.set("osd_heartbeat_interval", 0.25)
+                conf.set("osd_heartbeat_grace", 1.0)
+                cluster.kill_osd(11)
+                cluster.wait_for_osd_down(11, timeout=30)
+                gf_cuda.reset_launches()
+                for key, body in objs.items():
+                    status, etag, got = s3("GET", f"/b/{key}")
+                    assert status == 200 and got == body, key
+                    assert etag == f'"{hashlib.md5(body).hexdigest()}"'
+                assert gf_cuda.launches > 0
+                stats = [o._device_engine.stats
+                         for o in cluster.osds.values()
+                         if o._device_engine is not None]
+                assert max(s["decode_ops"] for s in stats) > 0, stats
+                assert max(s["errors"] + s["decode_errors"]
+                           for s in stats) == 0, stats
+            finally:
+                srv.stop()
     finally:
         for k, v in old.items():
             conf.set(k, v)

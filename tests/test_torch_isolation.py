@@ -121,7 +121,10 @@ def test_scan_covers_the_port():
                  "ceph_tpu_torch/services/journal.py",
                  "ceph_tpu_torch/services/rbd.py",
                  "ceph_tpu_torch/services/rbd_mirror.py",
-                 "ceph_tpu_torch/tools/rbd_cli.py"):
+                 "ceph_tpu_torch/tools/rbd_cli.py",
+                 "ceph_tpu_torch/services/rgw.py",
+                 "ceph_tpu_torch/services/rgw_lc.py",
+                 "ceph_tpu_torch/services/rgw_sync.py"):
         assert must in rel
 
 

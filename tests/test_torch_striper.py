@@ -31,14 +31,16 @@ def pkg_mod(pkg: str, name: str):
 
 
 class _Uuid4:
-    """``uuid`` stand-in whose ``uuid4()`` counts from 1."""
+    """``uuid`` stand-in whose ``uuid4()`` counts from 1, in the high bits:
+    the striper's tag is the first 16 hex digits, so each write generation
+    gets its own tag, as with ``uuid.uuid4``."""
 
     def __init__(self) -> None:
         self.n = 0
 
     def uuid4(self) -> uuid.UUID:
         self.n += 1
-        return uuid.UUID(int=self.n)
+        return uuid.UUID(int=self.n << 64)
 
 
 class _Clock:
