@@ -2341,7 +2341,7 @@ class OSD:
                     be.stat_object(pg, msg.oid)   # ENOENT check
                     reply(0)
                     return
-                data = bytes(be.read_object(pg, src))
+                data = self._read_current(pg, be, src)
                 self.logger.inc("op_w")
                 version = pg.alloc_version()
                 be.submit_write(
@@ -2720,10 +2720,27 @@ class OSD:
     # scanning the primary shard's listing instead of a SnapMapper
     # index — right for this scale, O(objects) per trim pass.
 
+    @staticmethod
+    def _read_current(pg: PG, be, oid: str) -> bytes:
+        """The object as the next op of its PG sees it. On an EC pool
+        that is the committed shards with the object's in-flight writes
+        laid over them (``ECBackend.read_object_current``): a device
+        pool's write commits after its engine flush, with ``pg.lock``
+        released, so the snapset, a clone or the head read from the
+        committed shards alone misses a write the PG ordered earlier
+        (a snapshot's clone then held the state before it). Raises
+        ``NoSuchObject`` when the object does not exist."""
+        if isinstance(be, ECBackend):
+            cur = be.read_object_current(pg, oid)
+            if cur is None:
+                raise NoSuchObject(oid)
+            return cur
+        return bytes(be.read_object(pg, oid))
+
     def _load_snapset(self, pg: PG, be, oid: str) -> dict:
         try:
-            return json.loads(bytes(be.read_object(pg,
-                                                   snapset_oid(oid))))
+            return json.loads(self._read_current(pg, be,
+                                                 snapset_oid(oid)))
         except (NoSuchObject, NoSuchCollection):
             return {"seq": 0, "clones": []}
 
@@ -2744,7 +2761,7 @@ class OSD:
         if msg.snap_seq <= seq:
             return
         try:
-            head = bytes(be.read_object(pg, msg.oid))
+            head = self._read_current(pg, be, msg.oid)
         except (NoSuchObject, NoSuchCollection):
             # no head to preserve: advance seq so a later write under
             # this context does not clone a head born after the snap

@@ -75,18 +75,18 @@ Phases, each printing one JSON line:
    users run: a ``MiniCluster`` of 12 OSDs (threaded, memstore; k+m = 11
    positions and one spare), an EC pool ``plugin=isa``
    ``technique=reed_sol_van`` k=8, m=3, ``pg_num=32``, stripe unit 4096,
-   ``backend=cuda``, bulk ingest on (the OSDs share one engine). 512
+   ``backend=cuda``, bulk ingest on (the OSDs share one engine). 256
    objects of 1 MiB (from the seed) written with ``write_full`` from 8
    client threads, then a ``write_full`` + ``append`` and a write +
    ``remove`` on one object each (the engine's barrier ordering). Checked:
-   every object reads back byte-exact; the engine's ops >= 512,
+   every object reads back byte-exact; the engine's ops >= 256,
    ``max_batch_ops`` > 1, no errors; B1 and B2 launched, B2 once a fused
    flush; for 16 objects in different PGs every shard read straight from
    its OSD's store, parity against the host GF oracle and each ``hinfo``
    crc against the host crc32c. The cluster runs with Ceph's default
    heartbeat grace (20 s) but while two OSDs are killed (the knobs
    tightened as the reference's ``fast_death`` fixtures do, until both
-   are marked down): all 512 objects read back degraded, the engine
+   are marked down): all 256 objects read back degraded, the engine
    decoded (``decode_ops`` > 0, no ``decode_errors``) with B1 launches,
    and 32 more objects are written and read back; then both OSDs revive,
    ``wait_for_clean``, and everything reads back again. The ``cluster``
@@ -99,7 +99,7 @@ Phases, each printing one JSON line:
    step. The phase runs in a child process on the same card (this script
    with ``--cluster-phase``), so the cluster's threads stay out of this
    process's profiler sessions, after phase 13 with 5e, 5f, 5g, 5h, 5i,
-   5j and 5d;
+   5j, 5k and 5d;
 5d. scrub: deep scrub on the card over the durable store, 5c's
    deployment on BlockStore (the BlueStore role; its data files in a
    temporary directory under ``build/scrub/``): 12 OSDs, the ISA k=8,m=3
@@ -126,7 +126,8 @@ Phases, each printing one JSON line:
    second, batches and objects a batch, and B1 and B2 launches by step
    (counts zeroed before and read after each step). It runs in a child
    process like 5c (``--scrub-phase``), which takes no profiler session,
-   and it runs last. The cluster children (5c, 5e, 5f, 5g, 5h, 5i, 5j, 5d) run
+   and it runs last. The cluster children (5c, 5e, 5f, 5g, 5h, 5i, 5j, 5k,
+   5d) run
    after phase 13: profiler sessions in this process after a cluster child
    have come back empty (phase 8). The ``scrub_times`` line, in
    phase 5, gives the verify program's events and profiler device ms at
@@ -134,12 +135,12 @@ Phases, each printing one JSON line:
    their parity and one flip) beside its bound;
 5e. crimson: 5c's deployment on crimson OSDs (``osd_flavor="crimson"``,
    3 reactors an OSD, each with its own memstore; the mainline
-   ``ECBackend`` and the shared engine on every reactor): 512 objects of
+   ``ECBackend`` and the shared engine on every reactor): 256 objects of
    1 MiB (from the seed) written from 8 client threads and read back; 16
    objects' shards read from the reactor stores against the host oracles;
    OSD 3 killed (the heartbeat knobs tightened until it is marked down),
-   the 512 read back degraded, OSD 3 revived with its shard stores
-   (crimson has no recovery) and the 512 read again. Checked: every read
+   the 256 read back degraded, OSD 3 revived with its shard stores
+   (crimson has no recovery) and the 256 read again. Checked: every read
    equals its payload, B1 and B2 launched on the writes (B2 once a fused
    flush), the degraded reads reconstructed on the host twin
    (``ec_util.decode``, the reference's route for a reactor: no engine
@@ -151,7 +152,7 @@ Phases, each printing one JSON line:
    (``--crimson-phase``);
 5f. serving: a threaded 12-OSD ``MiniCluster`` under cephx (``auth=True``:
    tickets from the mon, every frame signed) with 5c's pool, driven by the
-   degraded-serving load generator (``bench/load_gen.py``): 512 keys of
+   degraded-serving load generator (``bench/load_gen.py``): 256 keys of
    1 MiB preloaded, then a zipfian (theta 0.99) half-read load from 8
    closed-loop clients through the ladder healthy -> kill OSD 11 ->
    degraded -> revive -> recovering -> ``wait_for_clean`` -> recovered,
@@ -199,7 +200,7 @@ Phases, each printing one JSON line:
    tracked and timed; then 5c's
    deployment (12 threaded OSDs on memstore, the ISA k=8,m=3
    ``backend=cuda`` pool, ``pg_num=32``, one shared engine, a 20 s grace):
-   128 objects of 1 MiB written from 8 client threads through B1 + B2; a
+   64 objects of 1 MiB written from 8 client threads through B1 + B2; a
    planted probe, ``torch.cuda.synchronize()`` under
    ``make_lock("smoke.probe")``; the highest OSD killed (the ``fast_death``
    knobs until the mon marks it down), 32 objects read degraded, the OSD
@@ -221,10 +222,10 @@ Phases, each printing one JSON line:
    ISA k=8,m=3 ``backend=cuda`` pool, ``pg_num=32``, one shared engine, a
    20 s grace), with ``CEPH_TPU_COST_ANALYSIS=1`` (the fused flush notes
    each new signature's cost, ``ops/cost_model.py``): (a) image ``disk`` of
-   256 MiB (cut from 5c's 512 MiB) in RBD's default layout (1 MiB
+   64 MiB (5c's pool holds 256 MiB) in RBD's default layout (1 MiB
    objects) filled with 1 MiB writes from 8 threads (the last object
-   first); (b) 512 writes of 4 KiB from 8 threads and (c) a snapshot
-   ``s1`` and 256 more from one writer, at distinct seeded 4 KiB-aligned
+   first); (b) 64 writes of 4 KiB from 8 threads and (c) a snapshot
+   ``s1`` and 32 more from one writer, at distinct seeded 4 KiB-aligned
    offsets; (d) the head read whole (8 threads, an object each) and ``s1``
    through ``snap_read``, each against a host model of the image; (e) the
    highest OSD killed (the ``fast_death`` knobs until it is down), the
@@ -256,24 +257,24 @@ Phases, each printing one JSON line:
    with the port's ``sign_request`` and sent over HTTP to 127.0.0.1.
    Sizes from Ceph's RGW defaults (an object of ``rgw_obj_stripe_size``,
    4 MiB) and the AWS CLI's multipart chunk (8 MiB), cut to 5i's scale:
-   (a) a bucket and 64 objects of 4 MiB PUT from 8 threads; (b) a
-   multipart upload of 64 MiB in 8 parts from 4 threads, completed; (c)
+   (a) a bucket and 16 objects of 4 MiB PUT from 8 threads; (b) a
+   multipart upload of 16 MiB in 2 parts from 4 threads, completed; (c)
    a listing paged 16 keys at a time that walks every key, then every
    object GET from 8 threads; (d) the highest OSD killed (the
    ``fast_death`` knobs until it is down), every object GET degraded,
    the OSD revived, ``wait_for_clean``, every object GET again; (e)
    Swift TempAuth, the container listing of the same bucket, one
-   object's GET and HEAD; (f) 16 objects of 1 MiB under ``tmp/``, a
+   object's GET and HEAD; (f) 4 objects of 1 MiB under ``tmp/``, a
    lifecycle rule expiring ``tmp/`` after one day of ``RGW_DAY_S``
    seconds, one ``LifecycleProcessor.process``; (g) a ``zone_log``
-   gateway on the replicated pool writes 8 objects of 4 MiB,
+   gateway on the replicated pool writes 4 objects of 4 MiB,
    ``RGWSyncAgent`` into the EC gateway full-syncs them, one object is
    overwritten and one deleted, passes run until one applies nothing,
    then ``trim_applied``. Checked: every GET byte for byte with its etag
    the md5 (the multipart object's the ``md5-8`` form); the listing
    complete and in order; B1 launched in (d)'s degraded GETs and the
    engine decoded; native matvec calls in (a) (the host twin's RMW);
-   (f) expired exactly the 16 and the listing no longer shows them;
+   (f) expired exactly the 4 and the listing no longer shows them;
    (g)'s destination listing and bytes equal to the source's; no engine
    error and no HTTP 5xx. The ``rgw`` line prints each step's wall and
    GB/s, B1 and B2 launches, native matvec calls, object-class calls by
@@ -281,6 +282,49 @@ Phases, each printing one JSON line:
    requests by method and status, the sync passes and each noted
    signature's cost beside its measured GB/s. Runs in a child process
    (``--rgw-phase``);
+5k. cephfs: CephFS (``services/cephfs.py``, the MDS daemon
+   ``services/mds.py`` and its client mount ``services/mds_client.py``
+   over ``client/striper.py``, the ``fs``, ``lock`` and ``journal``
+   object classes) on 5c's deployment (12 threaded OSDs on memstore, the
+   ISA k=8,m=3 ``backend=cuda`` pool, ``pg_num=32``, one shared engine, a
+   20 s grace), metadata and data in the one pool, the reference's
+   default layout (stripe unit 1 MiB, stripe count 1, object size 1
+   MiB), one active MDS and (from step (e)) one standby with Ceph's 15 s
+   ``mds_beacon_grace`` as the active lease and its 60 s
+   ``mds_session_timeout`` as a cap's, two ``CephFSMount``s, with
+   ``CEPH_TPU_COST_ANALYSIS=1``: (a) 4 directories and 32 files of 4 MiB
+   written from both mounts by 8 threads, readdir and stat of everything;
+   (b) ``mksnap`` of ``/fs`` (``mid``) while one mount rewrites a 1 MiB
+   file, version after version; (c) the first piece of every other file
+   overwritten under ``mid`` (copy-on-write clones of 1 MiB pieces
+   through the fused flush), then ``mksnap`` of the first directory
+   (``keep``) and the second piece of its files overwritten under both;
+   (d) the highest OSD outside the acting set of the PG that holds the
+   MDS's lease object killed (the ``fast_death`` knobs until it is
+   down), every file, every ``mid`` and every ``keep`` file read
+   degraded, the OSD revived, ``wait_for_clean``; (e) the standby
+   started, the active MDS wedged inside a rename between its link and
+   unlink and killed with its lease held: the standby blocklists it,
+   replays the journal and answers the client's retried rename from the
+   replayed request table;
+   (f) ``rmsnap`` of ``mid`` and the OSDs' snap trimmers reclaiming its
+   clones; (g) every file and every ``keep`` file read again, ``mid``
+   gone. Checked: readdir and stat of the tree; the snapshot holds one
+   whole version of the live file, the one the PG ordered at the
+   snapshot (no older than the last write acknowledged before the
+   ``mksnap`` call, no newer than the last sent before its reply); every
+   read byte for byte against host models; B1 and B2 launched in (c),
+   B2 once a fused flush; B1 launched and the engine decoded in (d);
+   exactly one MDS takeover, in (e), the predecessor's instance in the
+   blocklist and no rename executed by the new active; ``mid``'s clones
+   gone and ``keep``'s kept after (f); every fused-flush signature noted
+   its cost; no engine error. The ``cephfs`` line prints each step's wall
+   and GB/s, B1 and B2 launches, decode ops, native matvec calls,
+   object-class calls by class and method, MDS ops by daemon and op, cap
+   revokes, takeovers, fused and host flushes, the fused-flush
+   signatures first noted in each step and each noted signature's cost
+   beside its measured GB/s. Runs in a child process
+   (``--cephfs-phase``);
 6. Clay kernels against their plain versions on the card, byte-exact: B3
    and B4 over k=8,m=4,d=11, k=4,m=2 and k=4,m=3,d=6 (virtual nodes) at
    ragged L (B3 also at 64 and 32 Ki lanes, its short form; B3 and B4 from
@@ -389,10 +433,12 @@ ENGINE_CALLERS = 2
 
 #: phase 5c: the cluster, the north-star profile as an EC pool of a
 #: 12-OSD MiniCluster (k+m = 11 positions and one spare), written by 8
-#: client threads; two OSDs are killed for the degraded reads
+#: client threads; two OSDs are killed for the degraded reads. 256
+#: objects (5c, 5e), cut from 512 to keep the script inside its time
+#: limit with phase 5k
 CLUSTER_OSDS = 12
 CLUSTER_PG_NUM = 32
-CLUSTER_OBJECTS = 512
+CLUSTER_OBJECTS = 256
 CLUSTER_CLIENTS = 8
 CLUSTER_DEGRADED_WRITES = 32
 CLUSTER_CHECKED = 16
@@ -1383,7 +1429,7 @@ CRIMSON_KILLED = CLUSTER_KILLED[0]
 
 
 def crimson_vs_threaded(crimson: dict, threaded: dict, smi: str) -> dict:
-    """Phase 5e's steps beside phase 5c's (the same 12-OSD pool, 512 x 1
+    """Phase 5e's steps beside phase 5c's (the same 12-OSD pool, 256 x 1
     MiB from 8 clients; 5c kills two OSDs, 5e one): walls and GB/s,
     flushes and ops a flush, window depth, and the dispatch telemetry's
     hops a client op and wakeups a reply frame."""
@@ -1577,8 +1623,9 @@ def crimson_phase(smi: str, backend: str = "cuda",
 
 
 #: phase 5f's load: the reference load generator's degraded-serving
-#: ladder at 5c's object size and client count
-SERVING_KEYS = 512
+#: ladder at 5c's object size, object count and client count (keys cut
+#: from 512 with 5c's objects)
+SERVING_KEYS = 256
 SERVING_PHASE_S = 8.0
 SERVING_READ_FRAC = 0.5
 SERVING_THETA = 0.99
@@ -1683,6 +1730,7 @@ def serving_phase(smi: str, backend: str = "cuda",
 #: over 5c's pool: 512 keys of 1 MiB written from 8 client threads, then
 #: the load generator's healthy phase (zipfian theta 0.99, half reads, 8
 #: closed-loop clients) for MGR_INTERVALS intervals of MGR_INTERVAL_S
+MGR_KEYS = 512
 MGR_INTERVALS = 4
 MGR_INTERVAL_S = 5.0
 #: the device_trace burst: 8 flushes of 16 objects of 1 MiB
@@ -1865,7 +1913,7 @@ def _verify_threaded(gen, threads: int) -> dict:
 
 
 def mgr_phase(smi: str, backend: str = "cuda",
-              n_keys: int = CLUSTER_OBJECTS,
+              n_keys: int = MGR_KEYS,
               intervals: int = MGR_INTERVALS,
               interval_s: float = MGR_INTERVAL_S) -> dict:
     """Phase 5g: the mgr's default module set with the closed-loop tuner
@@ -2097,9 +2145,10 @@ def mgr_phase(smi: str, backend: str = "cuda",
 
 
 #: phase 5h: phase 5c's deployment under the lock witness and lock timing:
-#: 128 objects of 1 MiB from 8 client threads, the highest OSD killed, 32
-#: of them read degraded, the OSD revived, every write read back
-WITNESS_OBJECTS = 128
+#: 64 objects of 1 MiB from 8 client threads (cut from 128 to pay for
+#: phase 5k), the highest OSD killed, 32 of them read degraded, the OSD
+#: revived, every write read back
+WITNESS_OBJECTS = 64
 WITNESS_DEGRADED_READS = 32
 WITNESS_KILLED = CLUSTER_OSDS - 1
 #: the lock the planted probe holds while it waits on the card: its
@@ -2305,8 +2354,8 @@ def _witness_findings(lw, locks: dict) -> dict:
 
 def witness_vs_cluster(witness: dict, cluster: dict, smi: str) -> dict:
     """Phase 5h's walls beside phase 5c's: the same deployment, 5h with
-    the witness and lock timing on (128 objects, one OSD killed), 5c with
-    both off (512 objects, two killed); rates, since the sizes differ."""
+    the witness and lock timing on (64 objects, one OSD killed), 5c with
+    both off (256 objects, two killed); rates, since the sizes differ."""
     def side(line, killed):
         return {"objects": line["objects"], "killed": killed,
                 "write_s": line["write_s"],
@@ -2321,20 +2370,21 @@ def witness_vs_cluster(witness: dict, cluster: dict, smi: str) -> dict:
 
 # -- 5i. RBD images on the pool --------------------------------------------
 
-#: phase 5i: an RBD image in 5c's pool, cut from 5c's 512 MiB to 256 MiB,
-#: with RBD's default layout (1 MiB objects); 512 writes of 4 KiB from 8
-#: threads, a snapshot and 256 more, at distinct seeded 4 KiB-aligned
+#: phase 5i: an RBD image in 5c's pool, cut from 512 MiB to 64 MiB,
+#: with RBD's default layout (1 MiB objects); 64 writes of 4 KiB from 8
+#: threads, a snapshot and 32 more, at distinct seeded 4 KiB-aligned
 #: offsets (distinct, so the host model does not depend on which of two
 #: racing writes lands last); a 32 MiB journaled image with 8 MiB
 #: written, mirrored into a second pool of the same profile. The 4 KiB
 #: writes are cut from 2048, which took 120 s on an H100 host: every
 #: striper write also rewrites the image's one meta object, so they
-#: queue on its PG
+#: queue on its PG. The image (256 MiB), the 4 KiB writes (512) and the
+#: snapshot writes (256) were cut again, to a quarter, to pay for phase 5k
 RBD_OBJECT = 1 << 20
-RBD_IMAGE_BYTES = 256 << 20
+RBD_IMAGE_BYTES = 64 << 20
 RBD_BLOCK = 4096
-RBD_SMALL_WRITES = 512
-RBD_SNAP_WRITES = 256
+RBD_SMALL_WRITES = 64
+RBD_SNAP_WRITES = 32
 RBD_JOURNALED_BYTES = 32 << 20
 RBD_JOURNALED_WRITTEN = 8 << 20
 #: sync passes the mirror may take to catch up (each replays every event
@@ -2681,20 +2731,21 @@ def rbd_phase(smi: str, backend: str = "cuda",
 
 #: phase 5j's sizes, from Ceph's documented RGW defaults (an object of
 #: ``rgw_obj_stripe_size``, 4 MiB) and the AWS CLI's default multipart
-#: chunk (8 MiB), cut to phase 5i's scale: 64 objects of 4 MiB (256 MiB,
-#: 5i's image) from 8 client threads; one 64 MiB object in 8 parts from 4
-#: threads; a listing paged 16 keys at a time; 16 objects of 1 MiB under
+#: chunk (8 MiB), cut to phase 5i's scale: 16 objects of 4 MiB (64 MiB,
+#: 5i's image) from 8 client threads; one 16 MiB object in 2 parts from 4
+#: threads; a listing paged 16 keys at a time; 4 objects of 1 MiB under
 #: ``tmp/`` for the lifecycle rule, whose day is compressed to
-#: ``RGW_DAY_S``; 8 objects of 4 MiB in the multisite source zone
+#: ``RGW_DAY_S``; 4 objects of 4 MiB in the multisite source zone (cut
+#: from 64, 8, 16 and 8 to pay for phase 5k)
 RGW_OBJECT = 4 << 20
-RGW_OBJECTS = 64
+RGW_OBJECTS = 16
 RGW_MP_PART = 8 << 20
-RGW_MP_PARTS = 8
+RGW_MP_PARTS = 2
 RGW_MP_THREADS = 4
 RGW_PAGE = 16
-RGW_TMP = 16
+RGW_TMP = 4
 RGW_TMP_BYTES = 1 << 20
-RGW_ZONE = 8
+RGW_ZONE = 4
 RGW_DAY_S = 0.5
 #: sync passes the destination zone may take to catch up
 RGW_SYNC_PASSES = 10
@@ -3102,7 +3153,517 @@ def rgw_phase(smi: str, backend: str = "cuda",
     return out
 
 
-#: the arguments that run phases 5c-5j alone (each the child process of
+# -- 5k. CephFS on the pool -------------------------------------------------
+
+#: phase 5k: a filesystem on 5c's pool through one active MDS, one standby
+#: and two mounts, in the reference's default file layout (stripe unit 1
+#: MiB, stripe count 1, object size 1 MiB): 32 files of 4 MiB (128 MiB,
+#: 5i's image) in 4 directories, written from both mounts by 8 threads;
+#: a 1 MiB file rewritten by a live writer while a snapshot is taken
+#: (``FS_LIVE_S`` before and after it). The active lease is Ceph's
+#: ``mds_beacon_grace`` default, 15 s: a shorter one lapsed under a loaded
+#: 12-OSD cluster is a takeover nobody asked for. A cap's lease is Ceph's
+#: ``mds_session_timeout`` default, 60 s: at the reference's 2 s a 4 MiB
+#: file write (four 1 MiB partial writes, each re-encoded on the host
+#: twin) outlasted the writer's exclusive cap on the card's cluster, and
+#: its size update was refused (EPERM)
+FS_PIECE = 1 << 20
+FS_FILE = 4 << 20
+FS_FILES = 32
+FS_DIRS = 4
+FS_LEASE_S = 15.0
+FS_CAP_TTL_S = 60.0
+FS_LIVE_S = 0.5
+#: the seconds the snap trimmers may take to reclaim a removed snapshot's
+#: clones
+FS_TRIM_S = 60.0
+
+
+def _snap_clones(cluster, pool_id: int, snapid: int) -> set:
+    """The clone objects of ``snapid`` (``oid`` + SNAP_SEP + the id in 16
+    hex digits) in the pool's acting shards: each PG's collection on each
+    OSD the map puts in its acting set (a listing through the OSDs leaves
+    snapshot objects out; a shard a remapped OSD took while another was
+    down stays there, outside the trimmer's reach, as in the
+    reference)."""
+    from ceph_tpu_torch.osd.osd import SNAP_SEP
+    from ceph_tpu_torch.osd.pg import pg_cid
+    tail = f"{SNAP_SEP}{snapid:016x}"
+    osdmap = cluster.mon.osdmap
+    out = set()
+    for ps in range(osdmap.pools[pool_id].pg_num):
+        _, acting, _ = osdmap.pg_to_up_acting(pool_id, ps)
+        for pos, osd_id in enumerate(acting):
+            store = cluster._stores.get(osd_id)
+            cid = pg_cid(pool_id, ps, pos)
+            if store is not None and cid in store.list_collections():
+                out.update(o for o in store.list_objects(cid)
+                           if o.endswith(tail))
+    return out
+
+
+def cephfs_phase(smi: str, backend: str = "cuda", n_files: int = FS_FILES,
+                 file_bytes: int = FS_FILE,
+                 lease_s: float = FS_LEASE_S) -> dict:
+    """Phase 5k: CephFS (``services/cephfs.py``, ``mds.py``,
+    ``mds_client.py``) on phase 5c's RS k=8,m=3 pool (see the module
+    docstring). Returns the B1/B2 launches of each step;
+    ``backend="torch"`` runs the plain versions (a rehearsal on the CPU,
+    where no launch is counted, no signature is timed and step (d), the
+    kill, is left out: degraded reads under a kill can stall on the CPU,
+    in both packages, ROADMAP section C)."""
+    import collections
+    import errno
+    os.environ.setdefault("CEPH_TPU_COST_ANALYSIS", "1")
+    from ceph_tpu_torch.ops import crc32c_cuda, gf_cuda, native_loader
+    from ceph_tpu_torch.qa.cluster import MiniCluster
+    from ceph_tpu_torch.services import mds as mds_mod
+    from ceph_tpu_torch.services import mds_client
+    from ceph_tpu_torch.services.cephfs import FSError
+    from ceph_tpu_torch.utils.config import g_conf
+    from ceph_tpu_torch.utils.device_telemetry import telemetry
+
+    t_phase = time.perf_counter()
+    on_card = backend == "cuda"
+    pieces = file_bytes // FS_PIECE
+    check(pieces >= 2, "5k: a file spans at least two pieces")
+    per_dir = n_files // FS_DIRS
+    rng = np.random.default_rng(SEED + 26)
+    bulk = rng.integers(0, 256, n_files * file_bytes, dtype=np.uint8)
+    first = rng.integers(0, 256, (n_files, FS_PIECE), dtype=np.uint8)
+    second = rng.integers(0, 256, (per_dir, FS_PIECE), dtype=np.uint8)
+    live_base = rng.integers(0, 256, FS_PIECE, dtype=np.uint8).tobytes()
+    dirs = [f"/fs/d{d}" for d in range(FS_DIRS)]
+    paths = [f"{dirs[i // per_dir]}/f{i:02d}" for i in range(n_files)]
+    heads = {p: bytearray(bulk[i * file_bytes:(i + 1) * file_bytes]
+                          .tobytes()) for i, p in enumerate(paths)}
+    del bulk
+    snap_models: dict = {"mid": {p: bytes(b) for p, b in heads.items()}}
+    walls, rates, launches, native_calls, cls_calls, engine = \
+        {}, {}, {}, {}, {}, {}
+    mds_ops, revokes, takeovers, signatures = {}, {}, {}, {}
+    shapes: dict = {}
+    checks = []
+    executed = collections.Counter()
+    revoked = collections.Counter()
+    count_lock = threading.Lock()
+
+    def verify(cond: bool, what: str) -> None:
+        check(cond, f"5k: {what}")
+        checks.append(what)
+
+    def live_model(n: int) -> bytes:
+        return f"epoch-{n:010d}".encode() + live_base[16:]
+
+    def mds_epoch() -> int:
+        return json.loads(io.read(mds_mod.MDSMAP_OID))["epoch"]
+
+    def step(label, fn, nbytes=0):
+        gf_cuda.reset_launches()
+        crc32c_cuda.reset_launches()
+        native_loader.reset_calls()
+        calls: dict = {}
+        before = dict(handle.stats)
+        ops0, rev0, epoch0 = dict(executed), sum(revoked.values()), \
+            mds_epoch()
+        sigs0 = set(shapes)
+        with _counted_cls_calls(calls):
+            t0 = time.perf_counter()
+            fn()
+            walls[label] = time.perf_counter() - t0
+        after = dict(handle.stats)
+        if nbytes:
+            rates[label] = nbytes / 1e9 / walls[label]
+        launches[label] = {"gf_matvec": gf_cuda.launches,
+                           "crc32c_rows": crc32c_cuda.launches}
+        native_calls[label] = native_loader.matvec_calls
+        cls_calls[label] = dict(sorted(calls.items()))
+        delta = {key: after.get(key, 0) - before.get(key, 0)
+                 for key in ("flushes", "host_flushes", "ops",
+                             "decode_ops", "decode_flushes")}
+        fused = delta["flushes"] - delta["host_flushes"]
+        engine[label] = {**delta, "fused_flushes": fused,
+                         "ops_per_flush": delta["ops"] / delta["flushes"]
+                         if delta["flushes"] else None}
+        mds_ops[label] = {op: n - ops0.get(op, 0)
+                          for op, n in sorted(executed.items())
+                          if n - ops0.get(op, 0)}
+        revokes[label] = sum(revoked.values()) - rev0
+        takeovers[label] = mds_epoch() - epoch0
+        signatures[label] = sorted(set(shapes) - sigs0)
+        print(f"5k: {label} {walls[label]:.2f} s, B1/B2 "
+              f"{launches[label]}, decode ops {delta['decode_ops']}",
+              file=sys.stderr, flush=True)
+
+    real_execute = mds_mod.MDSDaemon._execute
+    real_revoke = mds_client.CephFSMount._on_revoke
+
+    def counted_execute(daemon, client, tid, op, args):
+        with count_lock:
+            executed[f"{daemon.name}.{op}"] += 1
+        return real_execute(daemon, client, tid, op, args)
+
+    def counted_revoke(mount, ino, keep):
+        with count_lock:
+            revoked[mount.client_id] += 1
+        return real_revoke(mount, ino, keep)
+
+    def read_file(m, path: str, want: bytes, what: str) -> None:
+        with m.open(path) as f:
+            got = f.read()
+        verify(got == want, f"{what} {path} equals its model")
+
+    def read_all(label: str, snaps=("mid", "keep")) -> None:
+        jobs = [(p, heads[p], "head") for p in paths]
+        for name in snaps:
+            root = "/fs" if name == "mid" else dirs[0]
+            jobs += [(root + "/.snap/" + name + p[len(root):], want, name)
+                     for p, want in snap_models[name].items()]
+        _threaded(lambda i: read_file((m1, m2)[i % 2], jobs[i][0],
+                                      bytes(jobs[i][1]),
+                                      f"{label} {jobs[i][2]}"),
+                  len(jobs), CLUSTER_CLIENTS)
+
+    t_boot = time.perf_counter()
+    mds_mod.MDSDaemon._execute = counted_execute
+    mds_client.CephFSMount._on_revoke = counted_revoke
+    released = threading.Event()
+    try:
+        with _heartbeat_knobs(g_conf(), CLUSTER_GRACE), \
+                _recorded_costs(shapes), \
+                MiniCluster(n_osds=CLUSTER_OSDS) as cluster:
+            boot_s = time.perf_counter() - t_boot
+            cluster.create_ec_pool("fs_ec", k=K, m=M, plugin="isa",
+                                   technique="reed_sol_van",
+                                   pg_num=CLUSTER_PG_NUM, backend=backend)
+            rados = cluster.client()
+            io = rados.open_ioctx("fs_ec")
+            io.op_timeout = 600.0
+
+            def clones(snapid: int) -> set:
+                return _snap_clones(cluster, io.pool_id, snapid)
+
+            deadline = time.monotonic() + 60
+            while True:
+                try:
+                    handle = _engine_handle(cluster)
+                    break
+                except AssertionError:
+                    verify(time.monotonic() < deadline, "an OSD attached "
+                           "to the engine within 60 s")
+                    time.sleep(0.1)
+            active = mds_mod.MDSDaemon(
+                "a", cluster.mon_addr, "fs_ec", active_ttl=lease_s,
+                cap_ttl=FS_CAP_TTL_S).start(wait_active=True, timeout=120)
+            # the standby starts in step (e): through (d)'s kill the
+            # lease's object waits for recovery and its renewal stalls
+            # past the lease, and a standby polling then took over
+            standby = mds_mod.MDSDaemon(
+                "b", cluster.mon_addr, "fs_ec", active_ttl=lease_s,
+                cap_ttl=FS_CAP_TTL_S)
+            mounts = []
+            for _ in range(2):
+                mio = rados.open_ioctx("fs_ec")
+                mio.op_timeout = 600.0
+                mounts.append(mds_client.CephFSMount(
+                    mio, op_timeout=4 * lease_s + 60))
+            m1, m2 = mounts
+            verify(mds_epoch() == 1 and active.is_active(),
+                   "one active MDS")
+            try:
+                listing = {}
+
+                def tree():
+                    # (a) the directories, then the files from both
+                    # mounts; readdir and stat everything
+                    for d in ["/fs", "/fs/live"] + dirs:
+                        m1.mkdir(d)
+
+                    def put(i):
+                        with (m1, m2)[i % 2].create(paths[i]) as f:
+                            f.write(bytes(heads[paths[i]]))
+
+                    _threaded(put, n_files, CLUSTER_CLIENTS)
+                    listing["dirs"] = {d: m2.readdir(d)
+                                       for d in ["/fs"] + dirs}
+                    listing["stats"] = {p: m1.stat(p) for p in paths}
+
+                step("tree", tree, n_files * file_bytes)
+                verify(listing["dirs"]["/fs"] == sorted(
+                    [d.split("/")[-1] for d in dirs] + ["live"]),
+                    "readdir /fs")
+                for d in dirs:
+                    verify(listing["dirs"][d] == sorted(
+                        p.split("/")[-1] for p in paths
+                        if p.startswith(d + "/")), f"readdir {d}")
+                verify(all(st["type"] == "file" and
+                           st["size"] == file_bytes
+                           for st in listing["stats"].values()),
+                       "every file stats as a file of its size")
+
+                live = {}
+
+                def snapshot_under_writer():
+                    # (b) the reference test's race: a writer rewrites
+                    # /fs/live/data while the other mount snapshots /fs
+                    with m1.create("/fs/live/data") as f:
+                        f.write(live_model(0))
+                    stop, log = threading.Event(), []
+
+                    def writer():
+                        n = 1
+                        while not stop.is_set():
+                            t_sent = time.perf_counter()
+                            with m1.open("/fs/live/data") as h:
+                                h.write(live_model(n))
+                            log.append((n, t_sent, time.perf_counter()))
+                            n += 1
+
+                    t = threading.Thread(target=writer, daemon=True)
+                    t.start()
+                    time.sleep(FS_LIVE_S)
+                    t0 = time.perf_counter()
+                    live["snapid"] = m2.mksnap("/fs", "mid")
+                    t1 = time.perf_counter()
+                    time.sleep(FS_LIVE_S)
+                    stop.set()
+                    t.join(timeout=600)
+                    verify(not t.is_alive(), "the live writer stopped")
+                    with m2.open("/fs/.snap/mid/live/data") as f:
+                        got = f.read()
+                    n = int(got[6:16])
+                    verify(got == live_model(n), "the snapshot holds one "
+                           "whole version of the live file")
+                    acked = max([v for v, _, a in log if a < t0],
+                                default=0)
+                    sent = max([v for v, s, _ in log if s < t1], default=0)
+                    verify(acked <= n <= sent, "the snapshot holds the "
+                           "version the PG ordered at the snapshot: "
+                           f"{acked} <= {n} <= {sent}")
+                    last = log[-1][0]
+                    read_file(m2, "/fs/live/data", live_model(last),
+                              "the head of")
+                    live.update(versions=len(log) + 1, snapshot=n,
+                                acked_before=acked, sent_before=sent)
+                    snap_models["mid"]["/fs/live/data"] = got
+
+                step("snapshot", snapshot_under_writer)
+                verify(m2.lssnap("/fs") == {"mid": live["snapid"]},
+                       "lssnap /fs")
+
+                def overwrite():
+                    # (c) the first piece of every other file under "mid"
+                    # (copy-on-write clones of 1 MiB pieces), then "keep"
+                    # on the first directory and the second piece of its
+                    # files under both snapshots
+                    def one(j):
+                        i = 2 * j
+                        with (m1, m2)[j % 2].open(paths[i]) as f:
+                            f.write(first[i].tobytes(), offset=0)
+                        heads[paths[i]][:FS_PIECE] = first[i].tobytes()
+
+                    _threaded(one, n_files // 2, CLUSTER_CLIENTS)
+                    live["keep"] = m2.mksnap(dirs[0], "keep")
+                    snap_models["keep"] = {p: bytes(heads[p])
+                                           for p in paths[:per_dir]}
+
+                    def two(i):
+                        with (m2, m1)[i % 2].open(paths[i]) as f:
+                            f.write(second[i].tobytes(), offset=FS_PIECE)
+                        heads[paths[i]][FS_PIECE:2 * FS_PIECE] = \
+                            second[i].tobytes()
+
+                    _threaded(two, per_dir, CLUSTER_CLIENTS)
+
+                step("overwrite", overwrite,
+                     (n_files // 2 + per_dir) * FS_PIECE)
+                live["mid_clones"] = len(clones(live["snapid"]))
+                live["keep_clones"] = len(clones(live["keep"]))
+                verify(live["mid_clones"] >= n_files // 2 and
+                       live["keep_clones"] >= per_dir,
+                       f"copy-on-write clones made: {live}")
+
+                victim, down_s = None, None
+                n_read = (2 * n_files + per_dir) * file_bytes
+                if on_card:
+                    # (d) the highest OSD outside the lease's PG killed,
+                    # every file and every .snap file read degraded,
+                    # revived, wait_for_clean. The MDS renews its lease
+                    # on an object of this pool (Ceph's MDSs beacon to
+                    # the mon): killed in that PG's acting set, a renewal
+                    # sent across the map change waited for its
+                    # sub-writes past the lease, and the active deposed
+                    # itself
+                    osdmap = cluster.mon.osdmap
+                    _, lease_acting, _ = osdmap.pg_to_up_acting(
+                        io.pool_id, osdmap.object_to_pg(
+                            io.pool_id, mds_mod.MDSLOCK_OID))
+                    victim = max(set(range(CLUSTER_OSDS)) -
+                                 set(lease_acting))
+                    epoch = cluster.epoch()
+                    t0 = time.perf_counter()
+                    with _fast_death_kill(cluster, g_conf()):
+                        cluster.kill_osd(victim)
+                        cluster.wait_for_osd_down(victim, timeout=60)
+                    down_s = time.perf_counter() - t0
+                    rados.wait_for_epoch(epoch + 1, timeout=30)
+                    step("degraded_read", lambda: read_all("degraded"),
+                         n_read)
+                    verify(engine["degraded_read"]["decode_ops"] > 0,
+                           "the degraded reads decoded through the engine")
+
+                    def recover():
+                        cluster.revive_osd(victim)
+                        cluster.wait_for_osds_up(timeout=60)
+                        cluster.wait_for_clean(timeout=600)
+
+                    step("recovery", recover)
+
+                moved = {}
+
+                def failover():
+                    # (e) a standby started; the active MDS wedged between
+                    # rename's link and unlink, then killed with its lease
+                    # held; the standby fences it, replays the journal,
+                    # and the client's retry gets the completed reply
+                    standby.start()
+                    verify(not standby.is_active() and active.is_active(),
+                           "one active MDS, one standby")
+                    src = paths[-1]
+                    dst = f"{dirs[-2]}/moved"
+                    wedged = threading.Event()
+
+                    def stuck_unlink(dir_ino, name, snapc=None):
+                        wedged.set()
+                        released.wait()
+                        raise FSError(errno.ESHUTDOWN, "killed mid-rename")
+
+                    active.fs._dir_unlink = stuck_unlink
+                    done = []
+
+                    def rename():
+                        m1.rename(src, dst)
+                        done.append(True)
+
+                    t = threading.Thread(target=rename, daemon=True)
+                    t.start()
+                    verify(wedged.wait(120), "the rename reached the "
+                           "active MDS's unlink")
+                    fenced = active._rados.instance
+                    active.kill()
+                    t.join(timeout=4 * lease_s + 120)
+                    verify(done == [True], "the retried rename completed")
+                    verify(standby.is_active(), "the standby is active")
+                    code, _outs, data = rados.mon_command(
+                        {"prefix": "osd blocklist ls"})
+                    verify(code == 0 and fenced in json.loads(data),
+                           "the takeover blocklisted the predecessor")
+                    moved.update(src=src, dst=dst, fenced=fenced,
+                                 src_dir=m2.readdir(src.rsplit("/", 1)[0]),
+                                 dst_dir=m2.readdir(dirs[-2]))
+                    heads[dst] = heads.pop(src)
+                    paths[-1] = dst
+
+                step("failover", failover)
+                verify(moved["src"].split("/")[-1] not in moved["src_dir"]
+                       and "moved" in moved["dst_dir"],
+                       f"the rename landed once: {moved}")
+                verify(mds_ops["failover"].get("b.rename", 0) == 0,
+                       "the new active answered the retried rename from "
+                       f"its replayed journal: {mds_ops['failover']}")
+
+                def trim():
+                    # (f) rmsnap "mid": the OSDs' snap trimmers reclaim
+                    # the clones only "mid" covered
+                    m2.rmsnap("/fs", "mid")
+                    deadline = time.monotonic() + FS_TRIM_S
+                    while left := clones(live["snapid"]):
+                        verify(time.monotonic() < deadline, "the trimmers "
+                               f"reclaimed mid's clones in {FS_TRIM_S} s: "
+                               f"{len(left)} left, {sorted(left)[:4]}")
+                        time.sleep(0.5)
+                    live["keep_clones_after"] = len(clones(live["keep"]))
+
+                keep_before = clones(live["keep"])
+                step("trim", trim)
+                keep_after = clones(live["keep"])
+                # (the rmsnap rewrites /fs under the pool's snap context,
+                # which may add a clone named after "keep")
+                verify(keep_before <= keep_after, "keep's clones survive "
+                       f"the trim: {sorted(keep_before - keep_after)}")
+
+                def final():
+                    # (g) every file and the surviving snapshot against
+                    # the host models; "mid" gone
+                    read_all("final", snaps=("keep",))
+                    try:
+                        m1.open("/fs/.snap/mid/live/data")
+                        gone = None
+                    except FSError as exc:
+                        gone = exc.errno
+                    verify(gone == errno.ENOENT, "the removed snapshot "
+                           "no longer resolves")
+                    verify(m1.lssnap("/fs") == {} and
+                           m1.lssnap(dirs[0]) == {"keep": live["keep"]},
+                           "lssnap after the trim")
+
+                step("final", final, (n_files + per_dir) * file_bytes)
+            finally:
+                released.set()
+                for m in mounts:
+                    m.umount()
+                if standby.io is not None:
+                    standby.stop()
+                active.kill()
+            stats = dict(handle.stats)
+            verify(stats["errors"] == 0 and stats["decode_errors"] == 0,
+                   f"no engine errors: {stats}")
+            costs = telemetry().snapshot()["costs_by_signature"]
+    finally:
+        mds_mod.MDSDaemon._execute = real_execute
+        mds_client.CephFSMount._on_revoke = real_revoke
+
+    verify(native_calls["tree"] > 0,
+           "the file writes re-encoded on the native host GF (the RMW)")
+    verify(takeovers["failover"] == 1 and
+           sum(takeovers.values()) == 1,
+           f"exactly one MDS takeover, the one step (e) caused: "
+           f"{takeovers}")
+    if on_card:
+        w = launches["overwrite"]
+        verify(w["gf_matvec"] > 0 and w["crc32c_rows"] > 0,
+               f"B1 and B2 launched in the overwrites: {w}")
+        verify(launches["degraded_read"]["gf_matvec"] > 0,
+               f"B1 launched in the degraded reads: {launches}")
+        verify(sum(e["fused_flushes"] for e in engine.values()) ==
+               sum(w["crc32c_rows"] for w in launches.values()),
+               "B2 launched once a fused flush")
+        verify(set(costs) == set(shapes) and costs,
+               "every fused-flush signature noted its cost")
+    out = {"phase": "cephfs", "card": smi, "backend": backend,
+           "profile": "isa reed_sol_van k=8 m=3, stripe unit 4096",
+           "osds": CLUSTER_OSDS, "pg_num": CLUSTER_PG_NUM,
+           "layout": {"stripe_unit": FS_PIECE, "stripe_count": 1,
+                      "object_size": FS_PIECE},
+           "files": n_files, "file_bytes": file_bytes, "dirs": FS_DIRS,
+           "mounts": 2, "mds": ["a (active)", "b (standby)"],
+           "lease_s": lease_s, "cap_ttl_s": FS_CAP_TTL_S,
+           "clients": CLUSTER_CLIENTS,
+           "killed": victim, "boot_s": boot_s, "down_s": down_s,
+           "live": live, "rename": moved, "walls_s": walls,
+           "GBps": rates, "launches": launches,
+           "native_matvec_calls": native_calls, "cls_calls": cls_calls,
+           "mds_ops": mds_ops, "cap_revokes": revokes,
+           "takeovers": takeovers, "signatures": signatures,
+           "engine": engine,
+           "costs_by_signature": _signature_rates(shapes, costs, on_card),
+           "stats": stats, "checks": len(checks),
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+#: the arguments that run phases 5c-5k alone (each the child process of
 #: :func:`phase_in_child`)
 CLUSTER_CHILD_ARG = "--cluster-phase"
 SCRUB_CHILD_ARG = "--scrub-phase"
@@ -3112,6 +3673,7 @@ MGR_CHILD_ARG = "--mgr-phase"
 WITNESS_CHILD_ARG = "--witness-phase"
 RBD_CHILD_ARG = "--rbd-phase"
 RGW_CHILD_ARG = "--rgw-phase"
+CEPHFS_CHILD_ARG = "--cephfs-phase"
 #: with ``--witness-phase``: 5h's steps with neither the witness nor
 #: lock timing armed (what the wrappers cost, beside an armed run)
 WITNESS_UNARMED_ARG = "--unarmed"
@@ -4471,7 +5033,7 @@ def main() -> int:
     # -- 13. the engine under torch.profiler ------------------------------
     engine_profile_phase(dev, codec, sinfo)
 
-    # -- 5c-5j. the cluster phases, each in a child process on the card,
+    # -- 5c-5k. the cluster phases, each in a child process on the card,
     # after every profiler session of this process: sessions after a
     # cluster child have come back empty (phase 8) --------------------------
     # 5c. the OSD chain: a MiniCluster pool on the card
@@ -4501,6 +5063,9 @@ def main() -> int:
     # 5j. the RADOS gateway over HTTP on 5c's pool
     rgw_launches = phase_in_child(RGW_CHILD_ARG, "rgw", env={
         "CEPH_TPU_COST_ANALYSIS": "1"})["launches"]
+    # 5k. CephFS (an MDS, a standby, two mounts) on 5c's pool
+    cephfs_launches = phase_in_child(CEPHFS_CHILD_ARG, "cephfs", env={
+        "CEPH_TPU_COST_ANALYSIS": "1"})["launches"]
     # 5d. deep scrub over BlockStore
     scrub_launches = phase_in_child(SCRUB_CHILD_ARG, "scrub")["launches"]
 
@@ -4528,6 +5093,8 @@ def main() -> int:
                           in rbd_launches.items()},
          "rgw_launches": {step: n["gf_matvec"] for step, n
                           in rgw_launches.items()},
+         "cephfs_launches": {step: n["gf_matvec"] for step, n
+                             in cephfs_launches.items()},
          "scrub_launches": {step: n["gf_matvec"] for step, n
                             in scrub_launches.items()},
          "decode": {label: {key: timings[label][key] for key in
@@ -4555,6 +5122,8 @@ def main() -> int:
                           in rbd_launches.items()},
          "rgw_launches": {step: n["crc32c_rows"] for step, n
                           in rgw_launches.items()},
+         "cephfs_launches": {step: n["crc32c_rows"] for step, n
+                             in cephfs_launches.items()},
          "scrub_launches": {step: n["crc32c_rows"] for step, n
                             in scrub_launches.items()}},
     ] + clay + [
@@ -4585,6 +5154,8 @@ if __name__ == "__main__":
         raise SystemExit(child_main(rbd_phase))
     if RGW_CHILD_ARG in sys.argv[1:]:
         raise SystemExit(child_main(rgw_phase))
+    if CEPHFS_CHILD_ARG in sys.argv[1:]:
+        raise SystemExit(child_main(cephfs_phase))
     if WITNESS_CHILD_ARG in sys.argv[1:]:
         armed = WITNESS_UNARMED_ARG not in sys.argv[1:]
         raise SystemExit(child_main(

@@ -15,6 +15,11 @@ Then the port's counterparts of three reference cluster tests
 (``tests/test_device_path.py:393``, ``tests/test_engine_pipeline.py:374``
 and ``:472``), and the port's deliberate deviation: a device fault fails
 the op with EIO instead of falling back to the host twin, and is counted.
+Last, a snapshot's copy-on-write clone against the writes in flight: the
+race of two writes across a snapshot on both packages' host backends and
+the port's device backend, and the same race made certain by holding one
+write in the port's engine, where the OSD's repaired read clones it and
+the old read of the committed shards does not.
 Clusters run one after the other.
 """
 
@@ -508,3 +513,127 @@ def test_forced_backend_refuses_reference_names(monkeypatch, forced):
     cluster = MiniCluster(n_osds=1)
     with pytest.raises(ValueError, match="port's backends"):
         cluster.create_ec_pool("x")
+
+
+# -- a snapshot's clone and the writes in flight ------------------------
+
+def _snap_race_round(io, oid, gap_s=0.001, hold=None) -> tuple:
+    """One round of the race: ``oid`` holds 4 KiB of ``A``, a snapshot
+    ``s`` is taken, then ``B`` is written under the context before ``s``
+    and ``C`` under ``s``, from two threads ``gap_s`` apart (or, with
+    ``hold``, ``C`` once ``B`` is staged and held in the engine). Returns
+    (head, the read at ``s``), each as its first byte."""
+    io.write_full(oid, b"A" * 4096)
+    s = io.selfmanaged_snap_create()
+    before = {"snap_seq": s - 1, "snaps": []}
+    after = {"snap_seq": s, "snaps": [s]}
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        if hold is not None:
+            hold.arm()
+        fb = pool.submit(io.write_full, oid, b"B" * 4096, snapc=before)
+        if hold is not None:
+            assert hold.staged.wait(10), "B never reached the engine"
+        else:
+            threading.Event().wait(gap_s)
+        fc = pool.submit(io.write_full, oid, b"C" * 4096, snapc=after)
+        if hold is not None:
+            hold.release_when_more_staged()
+        fb.result(30)
+        fc.result(30)
+    return io.read(oid)[:1], io.read(oid, snap=s)[:1]
+
+
+class _HeldWrite:
+    """Holds back the commit of the next op staged into the port's device
+    engine: the engine's dispatch of its continuation waits until one
+    more op has been staged after it, so that write is still in flight
+    when the next op of its PG is ordered. (The continuation itself runs
+    on the PG's queue, which must stay free for that op.)"""
+
+    def __init__(self, monkeypatch) -> None:
+        from ceph_tpu_torch.osd import device_engine
+        eng = device_engine.DeviceEncodeEngine
+        self.staged = threading.Event()
+        self.go = threading.Event()
+        self.n_staged = 0
+        self.armed = False
+        self.blocking = False
+        stage_orig, dispatch_orig = eng.stage_encode, eng._dispatch_entries
+        held = self
+
+        def stage_encode(engine, *a, **kw):
+            held.n_staged += 1
+            if held.armed:
+                held.armed = False
+                held.staged.set()
+            return stage_orig(engine, *a, **kw)
+
+        def dispatch_entries(engine, entries):
+            if held.blocking:
+                held.go.wait(30)
+                held.blocking = False
+            return dispatch_orig(engine, entries)
+
+        monkeypatch.setattr(eng, "stage_encode", stage_encode)
+        monkeypatch.setattr(eng, "_dispatch_entries", dispatch_entries)
+
+    def arm(self) -> None:
+        self.staged.clear()
+        self.go.clear()
+        self.n_staged = 0
+        self.armed = self.blocking = True
+
+    def release_when_more_staged(self) -> None:
+        for _ in range(1000):
+            if self.n_staged >= 2:
+                break
+            threading.Event().wait(0.01)
+        assert self.n_staged >= 2, "C never reached the engine"
+        self.go.set()
+
+
+@pytest.mark.parametrize("pkg,backend", [("ceph_tpu", None),
+                                         ("ceph_tpu_torch", None),
+                                         ("ceph_tpu_torch", "torch")])
+def test_snapshot_clone_sees_writes_in_flight(pkg, backend):
+    """The race of two writes across a snapshot, looped, on an EC k=2,m=1
+    pool with one PG: ``B`` under the context before snapshot ``s``,
+    ``C`` under ``s``. Whenever the head reads ``C``, the PG ordered
+    ``B`` first, so ``C``'s copy-on-write clone (the read at ``s``) must
+    hold ``B``; a head of ``B`` means ``C`` went first and the clone
+    holds ``A``. Both packages' host backends, and the port's device
+    backend, whose writes commit after the engine flush."""
+    import importlib
+    cls = importlib.import_module(f"{pkg}.qa.cluster").MiniCluster
+    spec = {"k": 2, "m": 1, "pg_num": 1}
+    if backend:
+        spec["backend"] = backend
+    with cls(n_osds=3) as cluster:
+        cluster.create_ec_pool("p", **spec)
+        io = cluster.client().open_ioctx("p")
+        outcomes = [_snap_race_round(io, f"o{i}") for i in range(8)]
+    for head, snap in outcomes:
+        assert (head, snap) in ((b"C", b"B"), (b"B", b"A")), outcomes
+
+
+@pytest.mark.parametrize("read", ["current", "committed"])
+def test_snapshot_clone_of_a_held_write(monkeypatch, read):
+    """The race made certain on the port's device backend: ``B`` is held
+    in the engine (staged, not committed) while ``C``'s copy-on-write
+    runs. The repaired reads (``OSD._read_current``: in-flight writes
+    laid over the committed shards) clone ``B``; the old read of the
+    committed shards alone clones ``A``, the state before ``B``."""
+    from ceph_tpu_torch.osd import osd as osd_mod
+    if read == "committed":
+        monkeypatch.setattr(
+            osd_mod.OSD, "_read_current",
+            staticmethod(lambda pg, be, oid: bytes(be.read_object(pg,
+                                                                  oid))))
+    hold = _HeldWrite(monkeypatch)
+    with MiniCluster(n_osds=3) as cluster:
+        cluster.create_ec_pool("p", k=2, m=1, pg_num=1, backend="torch")
+        io = cluster.client().open_ioctx("p")
+        outcomes = [_snap_race_round(io, f"o{i}", hold=hold)
+                    for i in range(3)]
+    want = b"B" if read == "current" else b"A"
+    assert outcomes == [(b"C", want)] * 3

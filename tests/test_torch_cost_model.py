@@ -99,12 +99,19 @@ def test_fused_flush_fills_costs_by_signature(monkeypatch, chunk, stripes):
     of this flush."""
     monkeypatch.setenv("CEPH_TPU_FUSE_CRC", "1")
     monkeypatch.setenv("CEPH_TPU_COST_ANALYSIS", "1")
+    # both packages record a signature's cost once a process (the
+    # reference when it builds a new jit program, keyed by the matrix and
+    # the pow2 buckets; the port when it first meets the signature): an
+    # earlier k=8,m=3 fused flush in this worker would leave nothing new
+    # to record, so the caches and the tables start empty here
+    monkeypatch.setattr(ref_ec, "_fused_cache", {})
+    monkeypatch.setattr(ec_util, "_costed_signatures", set())
+    monkeypatch.setattr(ref_telemetry(), "_costs", {})
+    monkeypatch.setattr(telemetry(), "_costs", {})
     ref = ref_registry.instance().factory(
         "isa", {"plugin": "isa", "k": str(K), "m": str(M), "backend": "jax"})
     port = from_reference_profile(ref.get_profile(), ref.coding_matrix,
                                   device="cpu")
-    # a chunk size no other test flushes: the reference records a cost
-    # only when it compiles a new program
     sinfo = ec_util.StripeInfo(stripe_width=K * chunk, chunk_size=chunk)
     ref_sinfo = ref_ec.StripeInfo(stripe_width=K * chunk, chunk_size=chunk)
     rng = np.random.default_rng(chunk)

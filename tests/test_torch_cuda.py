@@ -26,7 +26,11 @@ baseline. The ``native`` host GF equals the numpy oracle and B1 on the
 card's host, and an RBD image on a ``backend=cuda`` ISA k=8,m=3 pool
 takes ``chip_smoke.py`` phase 5i's steps (a) and (e) at a small size; an
 RGW GET over HTTP on such a pool with one OSD down launches B1 and returns
-the PUT bytes (phase 5j's step (d)). Every test here needs an NVIDIA GPU and skips without one.
+the PUT bytes (phase 5j's step (d)); a CephFS file and its ``.snap``
+copy on such a pool, read through an MDS and a mount with one OSD down,
+launch B1 and return their bytes, and the snapshot's copy-on-write clone
+launches B1 and B2 (phase 5k's steps (c) and (d)). Every test here needs
+an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -983,6 +987,66 @@ def test_rgw_get_on_cuda_with_an_osd_down(cuda):
                            for s in stats) == 0, stats
             finally:
                 srv.stop()
+    finally:
+        for k, v in old.items():
+            conf.set(k, v)
+
+
+def test_cephfs_read_on_cuda_with_an_osd_down(cuda):
+    """Phase 5k's steps (c) and (d) at a small size: an MDS and a mount on
+    a ``backend=cuda`` ISA k=8,m=3 pool of 12 OSDs, a file of two 1 MiB
+    pieces, a snapshot of its directory, the first piece overwritten
+    (the copy-on-write clone goes through the fused flush: B1 and B2),
+    the highest OSD killed, the file and its ``.snap`` copy read back:
+    the bytes equal, the engine decodes and B1 launches."""
+    from ceph_tpu_torch.qa.cluster import MiniCluster
+    from ceph_tpu_torch.services.mds import MDSDaemon
+    from ceph_tpu_torch.services.mds_client import CephFSMount
+    from ceph_tpu_torch.utils.config import g_conf
+    conf = g_conf()
+    old = {k: conf[k] for k in ("osd_heartbeat_interval",
+                                "osd_heartbeat_grace")}
+    body = _bytes(91, 2 << 20).tobytes()
+    new = _bytes(92, 1 << 20).tobytes()
+    try:
+        with MiniCluster(n_osds=12) as cluster:
+            cluster.create_ec_pool("fs_cu", k=8, m=3, plugin="isa",
+                                   technique="reed_sol_van", pg_num=8,
+                                   backend="cuda")
+            io = cluster.client().open_ioctx("fs_cu")
+            io.op_timeout = 120.0
+            # a cap lease of Ceph's mds_session_timeout, as phase 5k's:
+            # a striped write on this pool can outlast the default 2 s
+            mds = MDSDaemon("a", cluster.mon_addr, "fs_cu",
+                            cap_ttl=60.0).start(wait_active=True)
+            try:
+                with CephFSMount(io, op_timeout=120.0) as m:
+                    m.mkdir("/d")
+                    with m.create("/d/f") as f:
+                        f.write(body)
+                    m.mksnap("/d", "s")
+                    gf_cuda.reset_launches()
+                    crc32c_cuda.reset_launches()
+                    with m.open("/d/f") as f:
+                        f.write(new)
+                    assert gf_cuda.launches > 0
+                    assert crc32c_cuda.launches > 0
+                    conf.set("osd_heartbeat_interval", 0.25)
+                    conf.set("osd_heartbeat_grace", 1.0)
+                    cluster.kill_osd(11)
+                    cluster.wait_for_osd_down(11, timeout=30)
+                    gf_cuda.reset_launches()
+                    with m.open("/d/f") as f:
+                        assert f.read() == new + body[1 << 20:]
+                    assert m.open("/d/.snap/s/f").read() == body
+                    assert gf_cuda.launches > 0
+            finally:
+                mds.stop()
+            stats = [o._device_engine.stats for o in cluster.osds.values()
+                     if o._device_engine is not None]
+            assert max(s["decode_ops"] for s in stats) > 0, stats
+            assert max(s["errors"] + s["decode_errors"]
+                       for s in stats) == 0, stats
     finally:
         for k, v in old.items():
             conf.set(k, v)

@@ -124,7 +124,10 @@ def test_scan_covers_the_port():
                  "ceph_tpu_torch/tools/rbd_cli.py",
                  "ceph_tpu_torch/services/rgw.py",
                  "ceph_tpu_torch/services/rgw_lc.py",
-                 "ceph_tpu_torch/services/rgw_sync.py"):
+                 "ceph_tpu_torch/services/rgw_sync.py",
+                 "ceph_tpu_torch/services/cephfs.py",
+                 "ceph_tpu_torch/services/mds.py",
+                 "ceph_tpu_torch/services/mds_client.py"):
         assert must in rel
 
 
