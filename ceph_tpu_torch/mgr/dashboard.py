@@ -46,6 +46,8 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ceph_tpu_torch.mgr.mgr_module import MgrModule
+from ceph_tpu_torch.parallel import mesh as mesh_mod
+from ceph_tpu_torch.parallel import placement
 
 _PAGE = """<!doctype html>
 <html><head><title>ceph_tpu dashboard</title>
@@ -258,9 +260,8 @@ class Module(MgrModule):
     @staticmethod
     def _mesh_payload(tel) -> dict:
         """The pod-scale serving panel: how much of the data path rode
-        the mesh, and the mesh and placement map in use. The port has no
-        mesh yet (ROADMAP A.5), so ``mesh`` and ``placement`` are None —
-        the reference's answer when no mesh is configured."""
+        the mesh, which compile seam built the steps, and the default
+        mesh's shape and the active placement map (None when unset)."""
         counters = tel.snapshot()["counters"]
         out = {key: counters.get(key, 0)
                for key in ("mesh_flushes", "mesh_decode_flushes",
@@ -268,7 +269,14 @@ class Module(MgrModule):
                            "placement_slots", "mesh_compile_pjit",
                            "mesh_compile_shard_map",
                            "mesh_dispatches")}
-        out["mesh"] = out["placement"] = None
+        mesh = mesh_mod.get_default_mesh()
+        out["mesh"] = {k: int(v) for k, v in mesh.shape.items()} \
+            if mesh else None
+        pmap = placement.active_map()
+        out["placement"] = {
+            "slots": pmap.n_slots,
+            "devices_per_slot": int(pmap.mesh.shape["shard"]),
+        } if pmap else None
         return out
 
     @staticmethod

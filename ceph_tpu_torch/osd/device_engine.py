@@ -36,8 +36,18 @@ point — ``stage_barrier``, ``run_sync``, ``stop``, a launch failure —
 drains the whole window first. ``window=1`` is the serial engine. On the
 CPU the same threads run the kernels' plain versions.
 
-Failure: a failed launch or fused flush reaches the op continuations as
-``err`` (the port has no fused-to-plain fallback: ``ec_util`` raises).
+Multi-device routing: when a process default mesh is set
+(parallel/mesh.py), flushes whose batch reaches ``mesh_flush_bytes``
+(``mesh_flush_threshold``) run the sharded encode step across the mesh's
+slots (``ec_util._flush_mesh``), and signature-batched decodes that reach
+it the sharded decode (``ec_util.flush_decode_mesh``). With a placement
+map of more than one slot (parallel/placement.py) each op is staged by
+(signature, placement slot) and its slot's flushes launch on that slot's
+submesh.
+
+Failure: a failed launch, fused or mesh flush reaches the op continuations
+as ``err`` (the port has no fallback to another route: ``ec_util``
+raises).
 
 Bulk ingest (``CEPH_TPU_BULK_INGEST``, default on): zero-copy staging into
 a per-signature concat buffer on the producer thread
@@ -52,10 +62,9 @@ variable pins registers a config observer, so the mgr tuner's pushes
 through the ``mon`` layer land as one attribute write — never a per-flush
 config read; ``stop()`` detaches them.
 
-Not ported yet: the multi-device mesh route (ROADMAP A.5: the placement
-slot is always 0 and ``ec_util`` raises on a mesh). The engine's locks
-are the lock witness's named seams (``analysis/lock_witness``); the
-other host hooks are the port's copies of the reference's modules.
+The engine's locks are the lock witness's named seams
+(``analysis/lock_witness``); the other host hooks are the port's copies of
+the reference's modules.
 """
 
 from __future__ import annotations
@@ -72,6 +81,8 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch.osd import ec_util
+from ceph_tpu_torch.parallel import mesh as mesh_mod
+from ceph_tpu_torch.parallel import placement as _placement
 from ceph_tpu_torch.utils import faults as _faults
 from ceph_tpu_torch.utils import profiler as _prof
 from ceph_tpu_torch.utils import stage_clock as _stage_clock
@@ -151,10 +162,31 @@ def _launch_context(codec, slot: int):
     return torch.cuda.stream(slot_stream(device, slot))
 
 
+def mesh_flush_threshold() -> int:
+    """The dense->mesh crossover in bytes: flushes at least this big route
+    through the default mesh's sharded steps. The environment beats the
+    ``mesh_flush_bytes`` Option, as for the engine's other knobs."""
+    env = os.environ.get("CEPH_TPU_MESH_FLUSH_BYTES")
+    if env is not None:
+        return int(env)
+    return int(g_conf()["mesh_flush_bytes"])
+
+
 def _placement_slot(key) -> int:
-    """The PG-placement slot of one staged op's key: always 0, since the
-    port has no mesh or placement map yet (ROADMAP A.5)."""
-    return 0
+    """The PG-placement slot for one staged op's dispatch key (the pgid,
+    possibly wrapped by a shared-engine attachment): the stripe-row
+    coordinate of the default mesh, 0 when no multi-slot map is active.
+    Computed at STAGE time so the staging buffers key by (signature,
+    slot) and each slot's bytes stay contiguous. The no-mesh case stays
+    one attribute read."""
+    if mesh_mod.get_default_mesh() is None:
+        return 0
+    pmap = _placement.active_map()
+    if pmap is None or pmap.n_slots <= 1:
+        return 0
+    if isinstance(key, AttachedKey):
+        key = key[1]
+    return pmap.slot(key)
 
 
 class _ConcatStager:
@@ -408,7 +440,8 @@ class DeviceEncodeEngine:
         window, w_pinned = knob(window, "CEPH_TPU_ENGINE_WINDOW",
                                 "engine_window")
         self._window = max(1, window)
-        #: kept for the reference's interface: no mesh route yet
+        #: batches at least this big route through the default mesh's
+        #: sharded steps (the dense->mesh crossover)
         self._mesh_flush_bytes, mfb_pinned = knob(
             mesh_flush_bytes, "CEPH_TPU_MESH_FLUSH_BYTES",
             "mesh_flush_bytes")
@@ -838,20 +871,31 @@ class DeviceEncodeEngine:
                 views = [d for _k, d, _c, _s, _cl, _t in items]
                 nbytes = sum(d.nbytes for d in views)
             _telemetry().note_slot_staged(pslot, -nbytes)
+            mesh, placed = self._flush_mesh_for(pslot, nbytes, sinfo)
             # SMALL flushes route to the HOST matvec, encoded at
             # finalize time on the RETIRE thread, riding the same FIFO
             # as device batches
-            host = (self._bulk and nbytes < self._host_flush_bytes
+            host = (self._bulk and mesh is None
+                    and nbytes < self._host_flush_bytes
                     and ec_util.host_flushable(codec))
             if batch is not None:
                 _telemetry().note_staging_copies_avoided(nbytes)
             if not host:
                 batcher = ec_util.StripeBatcher(
-                    sinfo, codec, on_fallback=self._note_fused_fallback)
+                    sinfo, codec, mesh=mesh,
+                    on_fallback=self._note_fused_fallback)
                 for i, buf in enumerate(views):
                     batcher.append(i, buf)
                 if batch is not None:
                     batcher.set_preconcat(batch)
+            if mesh is not None:
+                self.stats["mesh_flushes"] += 1
+                _telemetry().note_mesh_flush("encode")
+                if placed:
+                    self.stats["placement_flushes"] += 1
+                    per_slot = self.stats["per_slot_flushes"]
+                    per_slot[pslot] = per_slot.get(pslot, 0) + 1
+                    _telemetry().note_placement_flush()
             # window backpressure BEFORE the launch: with window=1 batch
             # N+1 launches only after N fully retired
             window = self._wait_window()
@@ -917,6 +961,24 @@ class DeviceEncodeEngine:
             with self._ifcv:
                 self.stats["busy_s"] += _time.perf_counter() - t0
         pending.clear()
+
+    def _flush_mesh_for(self, pslot: int, nbytes: int, sinfo):
+        """(mesh, placed) for a flush of ``nbytes`` staged on placement
+        slot ``pslot``: the default mesh once the batch reaches the
+        dense->mesh crossover (small flushes stay on the single-device
+        route), the slot's (1, shard) submesh when a placement map of more
+        than one slot is active (so flushes of different slots ride
+        disjoint slots), else (None, False). A chunk size that does not
+        split over the shard axis is routed to the single-device route by
+        shape, before any launch."""
+        mesh = mesh_mod.get_default_mesh()
+        if mesh is None or nbytes < self._mesh_flush_bytes or \
+                sinfo.chunk_size % mesh.shape["shard"]:
+            return None, False
+        pmap = _placement.active_map()
+        if pmap is not None and pmap.n_slots > 1:
+            return pmap.submesh(pslot), True
+        return mesh, False
 
     def _wait_window(self) -> int:
         """Block until the launch window has a free slot (counting a
@@ -1072,7 +1134,21 @@ class DeviceEncodeEngine:
                     for c in present}
                 lens = [len(np.asarray(shards[present[0]]))
                         for _k, shards, _w, _c, _s, _cl, _t in items]
-                out = ec_util.decode(sinfo, codec, merged, list(want))
+                # a big-enough signature batch rides the sharded decode
+                # on this PG slot's submesh (or the whole default mesh):
+                # the same dense->mesh crossover as encode; a mesh fault
+                # fails the group, as a single-device one does
+                mesh, placed = self._flush_mesh_for(pslot, staged, sinfo)
+                if mesh is not None and ec_util.device_decodable(codec):
+                    out = ec_util.flush_decode_mesh(
+                        mesh, sinfo, codec, merged, list(want))
+                    self.stats["mesh_decode_flushes"] += 1
+                    tel.note_mesh_flush("decode")
+                    if placed:
+                        self.stats["placement_flushes"] += 1
+                        tel.note_placement_flush()
+                else:
+                    out = ec_util.decode(sinfo, codec, merged, list(want))
             except Exception as exc:
                 log(0, f"device decode batch of {len(items)} ops "
                     f"(sig {present}->{want}) failed: {exc!r}")

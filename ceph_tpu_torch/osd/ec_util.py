@@ -15,8 +15,13 @@ parity, every op's per-shard segment cut from the same device tensors,
 kernel B2 on the segments; ``finalize()`` then downloads the data shards,
 parity and 8 bytes of crc per shard into pinned memory. It runs on the
 caller's current stream (the device engine launches each flush inside
-its window slot's side stream). The multi-device mesh flush is not part
-of this module yet: a mesh raises.
+its window slot's side stream).
+
+The mesh flush (:func:`_flush_mesh`, :func:`flush_decode_mesh`) runs a
+batch through the sharded steps of ``parallel/sharded_codec.py`` on a
+device mesh (parallel/mesh.py): stripes over the ``stripe`` axis, chunk
+bytes over ``shard``, kernel B1 on every slot's stream. Unlike the
+reference, a failed mesh flush raises and falls back to no other route.
 """
 
 from __future__ import annotations
@@ -243,12 +248,14 @@ class StripeBatcher:
     def __init__(self, sinfo: StripeInfo, codec,
                  flush_bytes: int = 8 << 20, mesh=None,
                  on_fallback=None) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "the multi-device mesh flush is not ported yet")
         self.sinfo = sinfo
         self.codec = codec
         self.flush_bytes = flush_bytes
+        #: parallel/mesh.Mesh: when set (and the codec is a plain matrix
+        #: codec), flushes run the distributed encode step over the mesh
+        #: (sharded_codec.make_encode_step): stripe batches split over
+        #: ('stripe' x 'shard'), parity computes with zero communication
+        self.mesh = mesh
         #: on_fallback(path, exc): the reference calls it when a fused
         #: flush failed and the batch re-ran on the plain path (the
         #: engine counts it). The port has no such fallback — a failed
@@ -293,8 +300,10 @@ class StripeBatcher:
 
     def flush_async(self, with_crcs: bool = False):
         """Launch the batch and return ``finalize() -> results``. On the
-        fused path the launch is asynchronous on a CUDA stream and
-        finalize waits for it; the plain path finalizes trivially."""
+        mesh and fused paths the launch is asynchronous on CUDA streams and
+        finalize waits for it; the plain path finalizes trivially. A mesh
+        or fused flush that fails raises (here or from finalize): no other
+        route re-runs the batch."""
         if not self._pending:
             return lambda: []
         ops, bufs = zip(*self._pending)
@@ -303,6 +312,9 @@ class StripeBatcher:
             batch = None           # caller's contract broken: re-copy
         self._pending, self._pending_bytes = [], 0
         self._preconcat = None
+        if self.mesh is not None and _device_fusable(self.codec):
+            return _flush_mesh(self.mesh, self.sinfo, self.codec, ops,
+                               bufs, batch=batch)
         if with_crcs and _device_fusable(self.codec) and \
                 _fused_fits(self.sinfo, self.codec, bufs):
             return _flush_device_fused_async(self.sinfo, self.codec,
@@ -331,6 +343,125 @@ def _pow2_bucket(n: int, floor: int) -> int:
     while b < n:
         b <<= 1
     return b
+
+
+#: id(mesh) -> {key: sharded step}; bounded — each step pins its mesh,
+#: so growth across mesh reconfigurations (or placement submeshes) stays
+#: bounded
+_mesh_step_cache: dict = {}
+_MESH_STEP_CACHE_MAX = 8
+
+
+def _mesh_step(mesh, key, build):
+    """One entry of the bounded per-mesh step cache."""
+    if id(mesh) not in _mesh_step_cache and \
+            len(_mesh_step_cache) >= _MESH_STEP_CACHE_MAX:
+        _mesh_step_cache.clear()
+    per_mesh = _mesh_step_cache.setdefault(id(mesh), {})
+    step = per_mesh.get(key)
+    if step is None:
+        step = per_mesh[key] = build()
+    return step
+
+
+def _round_stripes(data: np.ndarray, n_stripe: int) -> np.ndarray:
+    """pow2-bucket the stripe count and round it to the stripe axis; zero
+    stripes encode/decode to zero and slice off."""
+    s = data.shape[0]
+    s_pad = _pow2_bucket(max(s, n_stripe), n_stripe)
+    if s_pad % n_stripe:
+        s_pad = -(-s_pad // n_stripe) * n_stripe
+    if s_pad != s:
+        pad = np.zeros((s_pad - s,) + data.shape[1:], dtype=np.uint8)
+        data = np.concatenate([data, pad])
+    return data
+
+
+def _flush_mesh(mesh, sinfo: StripeInfo, codec, ops, bufs, batch=None):
+    """Flush the batch through the MULTI-DEVICE encode step: stripes split
+    over the mesh's ('stripe' x 'shard') axes, parity computes locally on
+    every slot (kernel B1 on the slot's stream), and the integrity stat
+    sums over the mesh. Parity bytes are exact against the host codec
+    (``place=False`` keeps them home; the messenger owns shard placement).
+
+    Returns ``finalize() -> [(op_id, shards, None)]``: the step call here
+    uploads the slots' blocks and queues their kernels; finalize downloads
+    — the engine parks mesh flushes on its in-flight window, so flushes on
+    different placement slots overlap on their own streams."""
+    from ceph_tpu_torch.parallel import sharded_codec
+    cs, sw = sinfo.chunk_size, sinfo.stripe_width
+    k = codec.get_data_chunk_count()
+    n_chunks = codec.get_chunk_count()
+    lens = [len(b) // sw * cs for b in bufs]
+    batch = np.concatenate(bufs) if batch is None else _host_batch(batch)
+    s = len(batch) // sw
+    data = _round_stripes(batch.reshape(s, k, cs), mesh.shape["stripe"])
+    mat = np.asarray(codec.coding_matrix, dtype=np.uint8)
+    step = _mesh_step(
+        mesh, mat.tobytes(),
+        lambda: sharded_codec.make_encode_step(mesh, mat, place=False))
+    chunks_dev, _csum = step(sharded_codec.shard_stripe_batch(mesh, data))
+
+    def finalize():
+        chunks = chunks_dev.numpy()[:s]                # [s, k+m, cs]
+        streams = {i: np.ascontiguousarray(chunks[:, i, :]).reshape(-1)
+                   for i in range(n_chunks)}
+        results = []
+        off = 0
+        for op_id, ln in zip(ops, lens):
+            results.append((op_id,
+                            {i: streams[i][off:off + ln]
+                             for i in range(n_chunks)}, None))
+            off += ln
+        return results
+
+    return finalize
+
+
+def flush_decode_mesh(mesh, sinfo: StripeInfo, codec,
+                      shards: dict[int, np.ndarray],
+                      want: list[int]) -> dict[int, np.ndarray]:
+    """Mesh twin of :func:`decode`: the engine's signature-batched
+    reconstruct as ONE sharded product — stripes over the ``stripe``
+    axis, chunk bytes over ``shard``, the decode matrix keyed by the
+    erasure signature as on the single-device route. Present rows return
+    verbatim. Raises on shapes the mesh cannot take and on a device fault
+    (no other route re-runs it)."""
+    from ceph_tpu_torch.ops import gf256
+    from ceph_tpu_torch.parallel import sharded_codec
+    cs = sinfo.chunk_size
+    present = sorted(shards)
+    missing = [i for i in want if i not in shards]
+    out = {i: np.asarray(shards[i], dtype=np.uint8)
+           for i in want if i in shards}
+    if not missing:
+        return out
+    n_shard = mesh.shape["shard"]
+    if cs % n_shard:
+        raise ErasureCodeError(
+            f"chunk size {cs} does not shard over {n_shard} devices")
+    k = codec.get_data_chunk_count()
+    if len(present) < k:
+        raise ErasureCodeError(
+            f"{len(present)} survivors < k={k}")
+    # any k survivors reconstruct the same bytes (MDS); the first k keep
+    # the decode matrix's signature stable per erasure signature
+    present = present[:k]
+    some = np.asarray(next(iter(shards.values())))
+    s = len(some) // cs
+    x = np.stack([np.asarray(shards[i], dtype=np.uint8).reshape(s, cs)
+                  for i in present], axis=1)       # [s, k, cs]
+    x = _round_stripes(x, mesh.shape["stripe"])
+    mat = np.asarray(codec.coding_matrix, dtype=np.uint8)
+    step = _mesh_step(
+        mesh, ("dec", mat.tobytes(), tuple(present), tuple(missing)),
+        lambda: sharded_codec.make_degraded_read_step(
+            mesh, gf256.systematic_generator(mat),
+            list(present), list(missing), gather=False))
+    rec = step(sharded_codec.shard_stripe_batch(mesh, x)).numpy()[:s]
+    for j, c in enumerate(missing):
+        out[c] = np.ascontiguousarray(rec[:, j, :]).reshape(-1)
+    return out
 
 
 def _fused_fits(sinfo: StripeInfo, codec, bufs) -> bool:

@@ -44,7 +44,11 @@ none of the batch's objects clean (they are listed as ``unverified``)
 and returns the PG's result with an ``error`` that names the fault.
 Replicated pools and layered or mapped codecs still take the host
 shallow scrub (``deep_scrub_pg`` returns None), as in the reference.
-The port has no device mesh yet: ``verify_batch`` raises when given one.
+With a default mesh (parallel/mesh.py) a batch that reaches the
+dense->mesh crossover verifies through the sharded verify step on the
+PG's placement-slot submesh, or the whole mesh; a fault there judges the
+batch's objects as any device fault does (the reference's fallback to
+the single-device program is not ported).
 
 Batches are bounded (``max_batch_objects``/``max_batch_bytes``) so
 the device working set is capped per round; verify launches run on the
@@ -63,8 +67,12 @@ import torch
 from ceph_tpu_torch.ops import backend as backend_mod
 from ceph_tpu_torch.ops import crc32c_torch, gf_cuda
 from ceph_tpu_torch.osd import ec_util
+from ceph_tpu_torch.osd.device_engine import mesh_flush_threshold
 from ceph_tpu_torch.osd.pg_backend import SUBOP_TIMEOUT, SubOpWait
 from ceph_tpu_torch.parallel import messages as M
+from ceph_tpu_torch.parallel import mesh as mesh_mod
+from ceph_tpu_torch.parallel import placement as _placement
+from ceph_tpu_torch.parallel import sharded_codec
 from ceph_tpu_torch.utils.device_telemetry import telemetry as _telemetry
 from ceph_tpu_torch.utils.dout import Dout
 from ceph_tpu_torch.analysis.lock_witness import make_lock
@@ -128,6 +136,23 @@ def verify_fn(mat: np.ndarray, k: int, l_b: int, nobj_b: int):
     return fn
 
 
+#: id(mesh) -> {(matrix bytes, k): verify step} — mesh twins of the
+#: verify program (bounded like ec_util's step cache)
+_mesh_verify_cache: dict = {}
+
+
+def _mesh_verify_step(mesh, mat: np.ndarray, k: int):
+    if id(mesh) not in _mesh_verify_cache and \
+            len(_mesh_verify_cache) >= _VERIFY_CACHE_MAX:
+        _mesh_verify_cache.clear()
+    per_mesh = _mesh_verify_cache.setdefault(id(mesh), {})
+    key = (mat.tobytes(), k)
+    step = per_mesh.get(key)
+    if step is None:
+        step = per_mesh[key] = sharded_codec.make_verify_step(mesh, mat, k)
+    return step
+
+
 def verify_batch(mat: np.ndarray, k: int, batch: np.ndarray, mesh=None,
                  device="cuda") -> tuple[np.ndarray, np.ndarray]:
     """Host entry: verify a [nobj, k+m, L] uint8 batch (L already a
@@ -137,21 +162,33 @@ def verify_batch(mat: np.ndarray, k: int, batch: np.ndarray, mesh=None,
     uploads the batch, runs the verify program through the telemetry
     compile accountant (the first call of a signature counts as its
     compile), and returns (mismatch [nobj, m] bool, crc_lin [nobj, k+m]
-    uint32) as numpy. The mesh route (the reference's sharded verify
-    twin) is not ported: a ``mesh`` raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the multi-device mesh verify is not ported yet")
+    uint32) as numpy.
+
+    With ``mesh`` the batch spreads over every slot of the mesh through
+    the sharded verify step (``parallel/sharded_codec.make_verify_step``)
+    instead, the object axis padded to a multiple of the slot count; the
+    verdicts are bit for bit the single-device program's (zero-padded
+    objects verify clean on both). A fault raises."""
     mat = np.asarray(mat, dtype=np.uint8)
     nobj, n, l_b = batch.shape
     m = mat.shape[0]
     assert n == k + m, (n, k, m)
     nobj_b = _pow2(max(nobj, 1), 1)
+    if mesh is not None and nobj_b % mesh.size:
+        # the object axis splits over EVERY slot: round the pow2 bucket
+        # up to a slot-count multiple
+        nobj_b = -(-nobj_b // mesh.size) * mesh.size
     if nobj_b != nobj:
         # zero objects: zero parity re-encodes to zero (no mismatch)
         padded = np.zeros((nobj_b, n, l_b), dtype=np.uint8)
         padded[:nobj] = batch
         batch = padded
+    if mesh is not None:
+        step = _mesh_verify_step(mesh, mat, k)
+        mism, lin = step(sharded_codec.shard_object_batch(mesh, batch))
+        _telemetry().note_mesh_scrub_batch()
+        return (mism.numpy()[:nobj],
+                lin.numpy().astype(np.uint32)[:nobj])
     fn = verify_fn(mat, k, l_b, nobj_b)
     sig = f"scrub_verify[{m}x{k}]L{l_b}n{nobj_b}"
     dev_batch = torch.from_numpy(np.ascontiguousarray(batch)).to(device)
@@ -415,10 +452,18 @@ class DeepScrubEngine:
 
     @staticmethod
     def _pick_mesh(pg, nbytes: int):
-        """The mesh this PG's verify batch should ride. The port has no
-        device mesh yet (ROADMAP A.5), so every batch verifies on the
-        pool's one device."""
-        return None
+        """The mesh this PG's verify batch should ride: None below the
+        dense->mesh crossover or with no default mesh; the PG's
+        placement-slot submesh when a multi-slot map is active (scrub lands
+        on the slots that own the PG's encode/decode work); else the whole
+        default mesh."""
+        mesh = mesh_mod.get_default_mesh()
+        if mesh is None or nbytes < mesh_flush_threshold():
+            return None
+        pmap = _placement.active_map()
+        if pmap is not None and pmap.n_slots > 1:
+            return pmap.submesh(pmap.slot(pg.pgid))
+        return mesh
 
     def _exclusion_test(self, be, obs: dict) -> int | None:
         """Single-corruption localization with no crc evidence: the

@@ -17,8 +17,8 @@ resend on peering change), as with the reference's lossy-client policy
 (src/ceph_osd.cc:531-557).
 
 The device seam: this messenger is the *control/metadata* plane. Bulk
-chunk movement between devices is the multi-device route's (not ported
-yet, ROADMAP A.5) — the NetworkStack-plugin seam
+chunk movement between devices is the mesh's explicit tensor moves
+between slots (parallel/mesh_compile.py) — the NetworkStack-plugin seam
 (msg/async/Stack.cc:66-95) where RDMA/DPDK slot into the reference.
 
 The in-process loopback registry (``_local_peers``) is this module's

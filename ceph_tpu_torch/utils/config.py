@@ -474,10 +474,11 @@ for _o in [
            "owning stripe row of the mesh (parallel/placement.py; "
            "env CEPH_TPU_MESH_PLACEMENT overrides)"),
     Option("mesh_compile_mode", str, "auto", "advanced",
-           "mesh-step compile seam (read by the multi-device route, "
-           "not ported yet: ROADMAP A.5); the values keep the "
-           "reference's names for its sharded-step compile routes "
-           "(env CEPH_TPU_MESH_COMPILE_MODE overrides)",
+           "mesh-step compile seam (parallel/mesh_compile.py); the "
+           "values keep the reference's names: auto and shard_map "
+           "take the per-slot body with explicit collectives, pjit "
+           "raises (the port has no SPMD partitioner; env "
+           "CEPH_TPU_MESH_COMPILE_MODE overrides)",
            enum_allowed=("auto", "pjit", "shard_map")),
     Option("profiler_hz", float, 50.0, "advanced",
            "stack-sampling profiler rate while running "

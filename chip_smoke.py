@@ -99,7 +99,7 @@ Phases, each printing one JSON line:
    step. The phase runs in a child process on the same card (this script
    with ``--cluster-phase``), so the cluster's threads stay out of this
    process's profiler sessions, after phase 13 with 5e, 5f, 5g, 5h, 5i,
-   5j, 5k and 5d;
+   5j, 5k, 5l and 5d;
 5d. scrub: deep scrub on the card over the durable store, 5c's
    deployment on BlockStore (the BlueStore role; its data files in a
    temporary directory under ``build/scrub/``): 12 OSDs, the ISA k=8,m=3
@@ -127,7 +127,7 @@ Phases, each printing one JSON line:
    (counts zeroed before and read after each step). It runs in a child
    process like 5c (``--scrub-phase``), which takes no profiler session,
    and it runs last. The cluster children (5c, 5e, 5f, 5g, 5h, 5i, 5j, 5k,
-   5d) run
+   5l, 5d) run
    after phase 13: profiler sessions in this process after a cluster child
    have come back empty (phase 8). The ``scrub_times`` line, in
    phase 5, gives the verify program's events and profiler device ms at
@@ -325,6 +325,38 @@ Phases, each printing one JSON line:
    signatures first noted in each step and each noted signature's cost
    beside its measured GB/s. Runs in a child process
    (``--cephfs-phase``);
+5l. mesh: the multi-device mesh (``parallel/mesh.py``,
+   ``mesh_compile.py``, ``sharded_codec.py``, ``placement.py``), one
+   process driving a grid of slots, each a device and a stream of its
+   own, under (a) ``make_mesh()`` over the card (1 x 1) and (b) a logical
+   (stripe 2, shard 4) mesh of 8 slots on ``cuda:0`` ("8 logical slots on
+   one card": its numbers say nothing of scaling across cards). For each:
+   (1) the sharded steps against the single-device route, byte for byte,
+   at the north-star flush's size (128 objects of 1 MiB): the encode with
+   and without placement (parity after undoing the ring shift, and the
+   csum against the host sum mod 2^32), degraded reads of 1 and 2 lost
+   data shards with the gather against ``ec_util.decode`` on the card,
+   and the verify of 16 objects of 1 MiB with 11 planted flips against
+   ``scrub_engine.verify_batch`` on the card; (2) phase 5b's drain (8 x
+   128 objects of 1 MiB from 4 producer threads) through the engine with
+   the mesh as default mesh and placement off, after a one-flush warm-up,
+   every shard against the host GF oracle. Then on (b) with placement on
+   (3) 5c's deployment (12 threaded OSDs on memstore, the ISA k=8,m=3
+   ``backend=cuda`` pool, ``pg_num=32``, a 20 s grace): 64 objects of 1
+   MiB written from 8 threads, OSDs 3 and 7 killed, 32 degraded reads (the
+   objects of PGs that lost two data shards first), the OSDs revived and
+   ``wait_for_clean``, a silent flip in 4 objects of different PGs (data
+   and parity positions), a deep scrub, a second deep scrub and every
+   object read back. Checked: every byte; the engine drain's 8 mesh
+   flushes with 8 B1 launches on every slot; both placement slots
+   flushed, mesh decode flushes in the degraded reads and mesh scrub
+   batches in the deep scrub, the deep scrub convicting and repairing
+   exactly the flips and the second one clean; on (b) every slot
+   launched B1 and B2. Each slot's launches are tallied around its local
+   work (``mesh_compile.map_slots``). The ``mesh`` line prints the walls,
+   the per-slot launches by step, the engine's stats and the cluster's
+   mesh counters by step; ``mesh_vs_engine`` puts the drains beside 5b's.
+   Runs in a child process (``--mesh-phase``);
 6. Clay kernels against their plain versions on the card, byte-exact: B3
    and B4 over k=8,m=4,d=11, k=4,m=2 and k=4,m=3,d=6 (virtual nodes) at
    ragged L (B3 also at 64 and 32 Ki lanes, its short form; B3 and B4 from
@@ -460,6 +492,15 @@ SCRUB_OBJECTS = 512
 SCRUB_FLIP_BYTES = 4
 #: objects a PG, and so a verify batch, in phase 5d (512 over 32 PGs)
 SCRUB_BATCH_OBJECTS = SCRUB_OBJECTS // CLUSTER_PG_NUM
+
+#: phase 5l: the multi-device mesh. Mesh (b) is a logical (stripe 2,
+#: shard 4) mesh of 8 slots on one card (the reference's tier-1 tests run
+#: 8 forced host devices on one CPU); its cluster, 5c's deployment with
+#: placement on, writes 64 objects, reads 32 degraded and deep-scrubs 4
+#: silent flips
+MESH_LOGICAL = {"stripe": 2, "shard": 4}
+MESH_CLUSTER_OBJECTS = 64
+MESH_DEGRADED_READS = 32
 
 #: the repo's Clay deployment (BASELINE.json configs[3], bench.py:546):
 #: q=4, t=3, nu=0, 64 sub-chunks per chunk
@@ -680,34 +721,38 @@ def _engine_burst(eng, codec, sinfo, objs, producers: int, prof=None,
     return wall, out, order, completed, stage_s, store_s
 
 
-def _check_engine_store(codec, data, store, out, completed, n_obj) -> int:
+def _check_engine_store(codec, data, store, out, completed, n_obj,
+                        crcs: bool = True) -> int:
     """Every op's data shards and parity in ``store`` against the host GF
-    oracle, and every crc of the first and the last flush against the
-    host crc32c; returns the number of crcs checked."""
+    oracle, and (``crcs``) every crc of the first and the last flush
+    against the host crc32c; returns the number of crcs checked. Without
+    ``crcs`` every op must have come back with none (the mesh flush)."""
     from ceph_tpu_torch.ops import gf256
     from ceph_tpu_torch.osd import ec_util
     from ceph_tpu_torch.utils import checksum
     seg = OBJECT_BYTES // K
     for o in range(n_obj):
-        crcs, err = out[o]
-        check(err is None and crcs is not None, f"op {o}: err {err!r}")
-    for lo in range(0, n_obj, OBJECTS):
-        # objects lo .. lo+127 in shard layout: op o's shard i is its
+        got, err = out[o]
+        check(err is None and (got is not None) == crcs,
+              f"op {o}: err {err!r}, crcs {got is not None}")
+    step = min(OBJECTS, n_obj)
+    for lo in range(0, n_obj, step):
+        # objects lo .. lo+step-1 in shard layout: op o's shard i is its
         # column slice; each op is checked against its own bytes
         dsh = np.ascontiguousarray(
-            data[lo * OBJECT_BYTES:(lo + OBJECTS) * OBJECT_BYTES]
-            .reshape(OBJECTS, -1, K, CHUNK).transpose(0, 2, 1, 3)
-            .reshape(OBJECTS, K, seg))
-        check(np.array_equal(store[0][lo:lo + OBJECTS], dsh),
+            data[lo * OBJECT_BYTES:(lo + step) * OBJECT_BYTES]
+            .reshape(step, -1, K, CHUNK).transpose(0, 2, 1, 3)
+            .reshape(step, K, seg))
+        check(np.array_equal(store[0][lo:lo + step], dsh),
               f"engine data shards of objects {lo}..")
         par = gf256.gf_matvec_chunks(
             codec.coding_matrix, np.ascontiguousarray(
                 dsh.transpose(1, 0, 2)).reshape(K, -1)) \
-            .reshape(M, OBJECTS, seg).transpose(1, 0, 2)
-        check(np.array_equal(store[1][lo:lo + OBJECTS], par),
+            .reshape(M, step, seg).transpose(1, 0, 2)
+        check(np.array_equal(store[1][lo:lo + step], par),
               f"engine parity of objects {lo}.. vs host oracle")
     crc_checked = 0
-    for ops in (completed[:OBJECTS], completed[-OBJECTS:]):
+    for ops in (completed[:OBJECTS], completed[-OBJECTS:]) if crcs else ():
         segs = np.concatenate([np.concatenate([store[0][o], store[1][o]])
                                for o in ops])
         host = checksum.crc32c_rows(segs, ec_util.HINFO_SEED)
@@ -754,7 +799,8 @@ def _data_return_probe(dev, data) -> dict:
 
 def engine_phase(dev, codec, sinfo, smi, single_flush_s) -> dict:
     """Phase 5b: the write path through ``DeviceEncodeEngine`` on the card
-    (see the module docstring). Returns the B1/B2 launch counts."""
+    (see the module docstring). Returns the drain's wall and GB/s (phase
+    5l's mesh drains print beside them)."""
     from ceph_tpu_torch.bench import engine_loop
     from ceph_tpu_torch.ops import crc32c_cuda, gf_cuda
     from ceph_tpu_torch.osd import ec_util
@@ -933,7 +979,7 @@ def engine_phase(dev, codec, sinfo, smi, single_flush_s) -> dict:
     del objs, data
     loop = engine_loop.run(device=dev, time_budget=30.0)
     emit({"phase": "engine_loop", **loop})
-    return launches
+    return {"drain_wall_s": wall, "drain_GBps": gbytes / wall}
 
 
 # -- the OSD chain (kernels B1, B2 through ECBackend and the engine) ------
@@ -3663,7 +3709,399 @@ def cephfs_phase(smi: str, backend: str = "cuda", n_files: int = FS_FILES,
     return out
 
 
-#: the arguments that run phases 5c-5k alone (each the child process of
+# -- the multi-device mesh (sharded steps, engine and cluster on slots) ---
+
+@contextlib.contextmanager
+def _slot_launches():
+    """Tally each mesh slot's B1 and B2 launches, by slot index: every
+    slot's local work runs through ``mesh_compile.map_slots``, wrapped
+    here to read the kernels' launch counts around it (the launching
+    thread is the only one launching while it runs)."""
+    from ceph_tpu_torch.ops import crc32c_cuda, gf_cuda
+    from ceph_tpu_torch.parallel import mesh_compile
+    tally: dict = {}
+    real = mesh_compile.map_slots
+
+    def counted(mesh, fn, *grids):
+        def per_slot(slot, *blocks):
+            b1, b2 = gf_cuda.launches, crc32c_cuda.launches
+            out = fn(slot, *blocks)
+            t = tally.setdefault(slot.index, [0, 0])
+            t[0] += gf_cuda.launches - b1
+            t[1] += crc32c_cuda.launches - b2
+            return out
+        return real(mesh, per_slot, *grids)
+
+    mesh_compile.map_slots = counted
+    try:
+        yield tally
+    finally:
+        mesh_compile.map_slots = real
+
+
+def _mesh_steps(dev, msh, codec, sinfo, n_obj: int) -> dict:
+    """Phase 5l (1): the sharded steps on ``msh`` against the single-device
+    route, byte for byte, at the north-star flush's size: the encode with
+    and without placement (parity and csum), degraded reads of 1 and 2
+    lost data shards with the gather (``n_obj`` objects of 1 MiB, one
+    flush), and the verify of 16 objects of 1 MiB with 11 planted flips.
+    Returns walls and per-slot launches by step (encode, read,
+    verify)."""
+    from ceph_tpu_torch.osd import ec_util, scrub_engine
+    from ceph_tpu_torch.ops import gf256
+    from ceph_tpu_torch.parallel import sharded_codec
+    isa = np.asarray(codec.coding_matrix, dtype=np.uint8)
+    s = n_obj * OBJECT_BYTES // (K * CHUNK)     # 4096 stripes a flush
+    n_shard = msh.shape["shard"]
+    data = np.random.default_rng(SEED + 20).integers(
+        0, 256, (s, K, CHUNK), dtype=np.uint8)
+    single = ec_util.encode(sinfo, codec, data.reshape(-1))
+    parity = np.stack([single[K + j].reshape(s, CHUNK) for j in range(M)],
+                      axis=1)                          # [s, M, CHUNK]
+    walls, tallies = {}, {}
+    with _slot_launches() as tallies["encode"]:
+        for place in (False, True):
+            t0 = time.perf_counter()
+            chunks, csum = sharded_codec.make_encode_step(
+                msh, isa, place=place)(
+                    sharded_codec.shard_stripe_batch(msh, data))
+            chunks, csum = chunks.numpy(), csum.numpy()
+            walls[f"encode place={place}"] = time.perf_counter() - t0
+            check(np.array_equal(chunks[:, :K], data),
+                  f"mesh encode (place={place}): data chunks")
+            got = chunks[:, K:]
+            if place:        # slot block b's parity landed at block b+1
+                c_l = CHUNK // n_shard
+                got = np.concatenate(
+                    [got[:, :, ((b + 1) % n_shard) * c_l:
+                         ((b + 1) % n_shard + 1) * c_l]
+                     for b in range(n_shard)], axis=2)
+            check(np.array_equal(got, parity),
+                  f"mesh encode (place={place}) vs the single-device route")
+            want = np.concatenate(
+                [data.sum(axis=(0, 2), dtype=np.uint64),
+                 parity.sum(axis=(0, 2), dtype=np.uint64)]) % (1 << 32)
+            check(np.array_equal(csum.astype(np.uint64), want),
+                  f"mesh encode (place={place}) csum")
+    full = np.concatenate([data, parity], axis=1)
+    del chunks
+    gen = gf256.systematic_generator(isa)
+    with _slot_launches() as tallies["read"]:
+        for lost in ([0], [0, 1]):
+            present = [i for i in range(K + M) if i not in lost][:K]
+            surv = np.ascontiguousarray(full[:, present])
+            t0 = time.perf_counter()
+            rec, gathered = sharded_codec.make_degraded_read_step(
+                msh, gen, present, lost)(
+                    sharded_codec.shard_stripe_batch(msh, surv))
+            rec, gathered = rec.numpy(), gathered.numpy()
+            walls[f"read e={len(lost)}"] = time.perf_counter() - t0
+            avail = {i: np.ascontiguousarray(full[:, i]).reshape(-1)
+                     for i in present}
+            dec = ec_util.decode(sinfo, codec, avail, lost)
+            for j, c in enumerate(lost):
+                want = dec[c].reshape(s, CHUNK)
+                check(np.array_equal(rec[:, j], want) and
+                      np.array_equal(gathered[:, j], want) and
+                      np.array_equal(want, full[:, c]),
+                      f"mesh degraded read of {c}, {lost} lost, vs the "
+                      "single-device route")
+            del surv, rec, gathered, avail, dec
+    # 16 objects of 1 MiB in shard layout, object i < 11 flipped at shard
+    # position i (4 bytes)
+    per = OBJECT_BYTES // (K * CHUNK)                   # 32 stripes
+    vbatch = np.ascontiguousarray(
+        full[:16 * per].reshape(16, per, K + M, CHUNK)
+        .transpose(0, 2, 1, 3).reshape(16, K + M, per * CHUNK))
+    del full
+    rng = np.random.default_rng(SEED + 21)
+    for i in range(K + M):
+        off = int(rng.integers(0, per * CHUNK - SCRUB_FLIP_BYTES))
+        vbatch[i, i, off:off + SCRUB_FLIP_BYTES] ^= 0xFF
+    with _slot_launches() as tallies["verify"]:
+        t0 = time.perf_counter()
+        mism, lin = scrub_engine.verify_batch(isa, K, vbatch, mesh=msh)
+        walls["verify"] = time.perf_counter() - t0
+        want_mism, want_lin = scrub_engine.verify_batch(isa, K, vbatch,
+                                                        device=dev)
+        check(np.array_equal(mism, want_mism) and
+              np.array_equal(lin, want_lin),
+              "mesh verify vs the single-device verify")
+        check({i for i in range(16) if mism[i].any()} == set(range(K + M)),
+              f"mesh verify flagged {np.flatnonzero(mism.any(axis=1))}")
+    return {"walls_s": walls, "slot_launches": tallies}
+
+
+def _mesh_engine(msh, codec, sinfo, per_flush: int, flushes: int) -> dict:
+    """Phase 5l (2): phase 5b's drain through the mesh: ``flushes`` x
+    ``per_flush`` objects of 1 MiB (8 x 128) staged from 4 producer
+    threads while a ``run_sync`` holds the engine, then released; every
+    flush takes the whole mesh (placement off). After a one-flush warm-up
+    burst that allocates the slots' blocks. Checked: every op's shards
+    against the host GF oracle."""
+    from ceph_tpu_torch.osd.device_engine import DeviceEncodeEngine
+    from ceph_tpu_torch.parallel import mesh as mesh_mod
+    n_obj = flushes * per_flush
+    data = np.random.default_rng(SEED + 11).integers(
+        0, 256, n_obj * OBJECT_BYTES, dtype=np.uint8)
+    objs = [data[i * OBJECT_BYTES:(i + 1) * OBJECT_BYTES]
+            for i in range(n_obj)]
+    seg = OBJECT_BYTES // K
+    store = (np.ones((n_obj, K, seg), np.uint8),
+             np.ones((n_obj, M, seg), np.uint8))
+    executor = KeyedExecutor(ENGINE_CALLERS)
+    old_env = os.environ.get("CEPH_TPU_MESH_PLACEMENT")
+    os.environ["CEPH_TPU_MESH_PLACEMENT"] = "0"
+    mesh_mod.set_default_mesh(msh)
+
+    def engine():
+        return DeviceEncodeEngine(executor.dispatch,
+                                  flush_bytes=per_flush * OBJECT_BYTES,
+                                  window=ENGINE_WINDOW)
+    try:
+        warm = engine()
+        try:
+            _engine_burst(warm, codec, sinfo, objs[:per_flush],
+                          ENGINE_PRODUCERS)
+        finally:
+            warm.stop()
+        eng = engine()
+        try:
+            with _slot_launches() as tally:
+                wall, out, _order, completed, _st, _sc = _engine_burst(
+                    eng, codec, sinfo, objs, ENGINE_PRODUCERS, store=store)
+            stats = dict(eng.stats)
+        finally:
+            eng.stop()
+    finally:
+        mesh_mod.set_default_mesh(None)
+        executor.stop()
+        if old_env is None:
+            os.environ.pop("CEPH_TPU_MESH_PLACEMENT")
+        else:
+            os.environ["CEPH_TPU_MESH_PLACEMENT"] = old_env
+    _check_engine_store(codec, data, store, out, completed, n_obj,
+                        crcs=False)
+    check(stats["mesh_flushes"] == stats["flushes"] == flushes and
+          stats["ops"] == n_obj and stats["errors"] == 0,
+          f"mesh engine burst: {stats}")
+    if codec.device.type == "cuda":
+        check(sorted(tally) == list(range(msh.size)) and
+              all(t[0] == flushes for t in tally.values()),
+              f"mesh engine B1 launches by slot {tally}")
+    gbytes = n_obj * OBJECT_BYTES / 1e9
+    return {"drain_wall_s": wall, "drain_GBps": gbytes / wall,
+            "slot_launches": tally,
+            "stats": {key: stats[key] for key in
+                      ("flushes", "ops", "mesh_flushes", "errors",
+                       "max_inflight_depth", "host_flushes")}}
+
+
+def _mesh_cluster(msh, backend: str, n_obj: int, n_reads: int) -> dict:
+    """Phase 5l (3): phase 5c's deployment (12 threaded OSDs on memstore,
+    the ISA k=8,m=3 pool, ``pg_num`` 32) with ``msh`` as the default mesh
+    and placement on: ``n_obj`` objects of 1 MiB written from 8 threads,
+    OSDs 3 and 7 killed, ``n_reads`` degraded reads (the objects of PGs
+    that lost data shards first), the OSDs revived and
+    ``wait_for_clean``, a silent flip in 4 objects of different PGs
+    (data and parity positions), a deep scrub that must convict and
+    repair exactly those, a second one that must be clean, and every
+    object read back."""
+    from ceph_tpu_torch.osd.pg import pg_cid
+    from ceph_tpu_torch.parallel import mesh as mesh_mod
+    from ceph_tpu_torch.qa.cluster import MiniCluster
+    from ceph_tpu_torch.utils.config import g_conf
+    from ceph_tpu_torch.utils.device_telemetry import telemetry
+    rng = np.random.default_rng(SEED + 22)
+    data = rng.integers(0, 256, n_obj * OBJECT_BYTES, dtype=np.uint8)
+    oids = [f"obj{i}" for i in range(n_obj)]
+    pays = {o: data[i * OBJECT_BYTES:(i + 1) * OBJECT_BYTES].tobytes()
+            for i, o in enumerate(oids)}
+    del data
+    walls, slot_launches, deltas = {}, {}, {}
+    counter_keys = ("mesh_flushes", "mesh_decode_flushes",
+                    "mesh_scrub_batches", "placement_flushes")
+
+    def step(label, fn):
+        before = telemetry().perf.dump()
+        with _slot_launches() as tally:
+            t0 = time.perf_counter()
+            result = fn()
+            walls[label] = time.perf_counter() - t0
+        after = telemetry().perf.dump()
+        slot_launches[label] = tally
+        deltas[label] = {k: after.get(k, 0) - before.get(k, 0)
+                         for k in counter_keys}
+        return result
+
+    def read_all(names, label):
+        _threaded(lambda i: check(io.read(names[i]) == pays[names[i]],
+                                  f"{label} read of {names[i]}"),
+                  len(names), CLUSTER_CLIENTS)
+
+    mesh_mod.set_default_mesh(msh)
+    try:
+        with _heartbeat_knobs(g_conf(), CLUSTER_GRACE), \
+                MiniCluster(n_osds=CLUSTER_OSDS) as cluster:
+            cluster.create_ec_pool("mesh_ec", k=K, m=M, plugin="isa",
+                                   technique="reed_sol_van",
+                                   pg_num=CLUSTER_PG_NUM, backend=backend)
+            osdmap = cluster.mon.osdmap
+            pool_id = osdmap.pool_by_name["mesh_ec"]
+            rados = cluster.client()
+            io = rados.open_ioctx("mesh_ec")
+            io.op_timeout = 600.0
+            step("write", lambda: _threaded(
+                lambda i: io.write_full(oids[i], pays[oids[i]]), n_obj,
+                CLUSTER_CLIENTS))
+            handle = next(o._device_engine for o in cluster.osds.values()
+                          if o._device_engine is not None)
+            write_stats = dict(handle.stats)
+            # the degraded reads: objects of PGs that lose two data
+            # shards first (their decode is not XOR), then one
+            lost_data = {}
+            for o in oids:
+                ps = osdmap.object_to_pg(pool_id, o)
+                acting = osdmap.pg_to_up_acting(pool_id, ps)[1]
+                lost_data[o] = sum(osd in CLUSTER_KILLED
+                                   for osd in acting[:K])
+            reads = sorted(oids, key=lambda o: -lost_data[o])[:n_reads]
+            epoch = cluster.epoch()
+            with _heartbeat_knobs(g_conf(), FAST_DEATH):
+                for osd in CLUSTER_KILLED:
+                    cluster.kill_osd(osd)
+                for osd in CLUSTER_KILLED:
+                    cluster.wait_for_osd_down(osd, timeout=60)
+            rados.wait_for_epoch(epoch + 1, timeout=30)
+            step("degraded_read", lambda: read_all(reads, "degraded"))
+
+            def recover():
+                for osd in CLUSTER_KILLED:
+                    cluster.revive_osd(osd)
+                cluster.wait_for_osds_up(timeout=60)
+                cluster.wait_for_clean(timeout=600)
+
+            step("recovery", recover)
+            flips, seen = {}, set()
+            for o in oids:
+                ps = osdmap.object_to_pg(pool_id, o)
+                if ps in seen:
+                    continue
+                seen.add(ps)
+                pos = (0, 3, K, K + M - 1)[len(flips)]
+                acting = cluster.mon.osdmap.pg_to_up_acting(pool_id, ps)[1]
+                off = int(rng.integers(0, OBJECT_BYTES // K
+                                       - SCRUB_FLIP_BYTES))
+                cluster._stores[acting[pos]].inject_bit_flip(
+                    pg_cid(pool_id, ps, pos), o, offset=off,
+                    length=SCRUB_FLIP_BYTES)
+                flips[o] = pos
+                if len(flips) == 4:
+                    break
+            res = step("deep_scrub", lambda: cluster.scrub_pool(
+                "mesh_ec", deep=True))
+            check(res.get("deep") and "skipped" not in res,
+                  f"mesh deep scrub skipped PGs: {res.get('skipped')}")
+            check(res["inconsistent"] == {o: [p] for o, p in flips.items()},
+                  f"mesh deep scrub convicted {res['inconsistent']}, "
+                  f"flipped {flips}")
+            check(sorted(res["repaired"]) == sorted(flips),
+                  f"mesh deep scrub repaired {res['repaired']}")
+            again = step("deep_scrub_again", lambda: cluster.scrub_pool(
+                "mesh_ec", deep=True))
+            check(again["inconsistent"] == {} and "skipped" not in again,
+                  f"second mesh deep scrub: {again}")
+            step("final_read", lambda: read_all(oids, "final"))
+            final = dict(handle.stats)
+    finally:
+        mesh_mod.set_default_mesh(None)
+    check(final["errors"] == 0 and final["decode_errors"] == 0,
+          f"mesh cluster engine errors: {final}")
+    check(set(write_stats["per_slot_flushes"]) == {0, 1},
+          f"placement slots that flushed: {write_stats['per_slot_flushes']}")
+    check(deltas["degraded_read"]["mesh_decode_flushes"] > 0,
+          f"no mesh decode flush in the degraded reads: {deltas}")
+    check(deltas["deep_scrub"]["mesh_scrub_batches"] > 0,
+          f"no mesh scrub batch: {deltas}")
+    gb = n_obj * OBJECT_BYTES / 1e9
+    return {"osds": CLUSTER_OSDS, "pg_num": CLUSTER_PG_NUM,
+            "objects": n_obj, "degraded_reads": n_reads,
+            "killed": list(CLUSTER_KILLED), "flips": flips,
+            "walls_s": walls, "write_GBps": gb / walls["write"],
+            "counters_by_step": deltas, "slot_launches": slot_launches,
+            "per_slot_flushes": final["per_slot_flushes"],
+            "stats": {key: final[key] for key in
+                      ("flushes", "ops", "mesh_flushes",
+                       "mesh_decode_flushes", "placement_flushes",
+                       "decode_ops", "host_flushes", "errors",
+                       "decode_errors")}}
+
+
+def mesh_phase(smi: str, backend: str = "cuda",
+               flush_objects: int = OBJECTS,
+               engine_flushes: int = ENGINE_FLUSHES,
+               cluster_objects: int = MESH_CLUSTER_OBJECTS,
+               degraded_reads: int = MESH_DEGRADED_READS) -> dict:
+    """Phase 5l: the multi-device mesh on the card (see the module
+    docstring) under (a) ``make_mesh()`` over the card, one slot, and
+    (b) a logical (stripe 2, shard 4) mesh of 8 slots on ``cuda:0``.
+    ``backend="torch"`` runs it on CPU slots with the plain versions (a
+    rehearsal, where no launch is counted)."""
+    from ceph_tpu_torch.models import instance
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.parallel import mesh as mesh_mod
+    on_card = backend == "cuda"
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    t_phase = time.perf_counter()
+    codec = instance().factory(
+        "isa", {"k": str(K), "m": str(M), "technique": "reed_sol_van"},
+        device=dev)
+    sinfo = ec_util.StripeInfo(stripe_width=K * CHUNK, chunk_size=CHUNK)
+    meshes = {
+        "a": mesh_mod.make_mesh() if on_card
+        else mesh_mod.make_mesh(devices=[dev]),
+        "b": mesh_mod.make_mesh(MESH_LOGICAL["stripe"]
+                                * MESH_LOGICAL["shard"], devices=[dev] * 8,
+                                **MESH_LOGICAL)}
+    out = {"phase": "mesh", "card": smi,
+           "profile": "isa reed_sol_van k=8 m=3, stripe unit 4096",
+           "meshes": {"a": "make_mesh() over the card",
+                      "b": "8 logical slots on one card"},
+           "shapes": {name: msh.shape for name, msh in meshes.items()}}
+    launches: dict = {}
+    for name, msh in meshes.items():
+        steps = _mesh_steps(dev, msh, codec, sinfo, flush_objects)
+        engine = _mesh_engine(msh, codec, sinfo, flush_objects,
+                              engine_flushes)
+        out[name] = {"steps": steps, "engine": engine}
+        for label, tally in steps["slot_launches"].items():
+            launches[f"{name} {label}"] = tally
+        launches[f"{name} engine"] = engine["slot_launches"]
+    cluster = _mesh_cluster(meshes["b"], backend, cluster_objects,
+                            degraded_reads)
+    out["b"]["cluster"] = cluster
+    for label, tally in cluster["slot_launches"].items():
+        launches[f"b cluster {label}"] = tally
+    if on_card:
+        # (b): every slot launched B1 and B2 in the steps and the cluster
+        for tallies in (out["b"]["steps"]["slot_launches"],
+                        cluster["slot_launches"]):
+            tally = {s: [sum(t.get(s, [0, 0])[i] for t in
+                             tallies.values()) for i in (0, 1)]
+                     for s in range(8)}
+            check(sorted(tally) == list(range(8)) and
+                  all(b1 > 0 and b2 > 0 for b1, b2 in tally.values()),
+                  f"(b) slots without a B1 or B2 launch: {tally}")
+    out["launches"] = {
+        label: {"gf_matvec": sum(t[0] for t in tally.values()),
+                "crc32c_rows": sum(t[1] for t in tally.values())}
+        for label, tally in launches.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+#: the arguments that run phases 5c-5l alone (each the child process of
 #: :func:`phase_in_child`)
 CLUSTER_CHILD_ARG = "--cluster-phase"
 SCRUB_CHILD_ARG = "--scrub-phase"
@@ -3674,6 +4112,7 @@ WITNESS_CHILD_ARG = "--witness-phase"
 RBD_CHILD_ARG = "--rbd-phase"
 RGW_CHILD_ARG = "--rgw-phase"
 CEPHFS_CHILD_ARG = "--cephfs-phase"
+MESH_CHILD_ARG = "--mesh-phase"
 #: with ``--witness-phase``: 5h's steps with neither the witness nor
 #: lock timing armed (what the wrappers cost, beside an armed run)
 WITNESS_UNARMED_ARG = "--unarmed"
@@ -5013,7 +5452,7 @@ def main() -> int:
 
     # -- 5b. the device engine ---------------------------------------------
     del results, streams
-    engine_phase(dev, codec, sinfo, smi, flush_s)
+    drain = engine_phase(dev, codec, sinfo, smi, flush_s)
 
     # -- 6-8. Clay -------------------------------------------------------
     clay = clay_phases(dev, hbm, smi)
@@ -5033,7 +5472,7 @@ def main() -> int:
     # -- 13. the engine under torch.profiler ------------------------------
     engine_profile_phase(dev, codec, sinfo)
 
-    # -- 5c-5k. the cluster phases, each in a child process on the card,
+    # -- 5c-5l. the cluster phases, each in a child process on the card,
     # after every profiler session of this process: sessions after a
     # cluster child have come back empty (phase 8) --------------------------
     # 5c. the OSD chain: a MiniCluster pool on the card
@@ -5066,6 +5505,16 @@ def main() -> int:
     # 5k. CephFS (an MDS, a standby, two mounts) on 5c's pool
     cephfs_launches = phase_in_child(CEPHFS_CHILD_ARG, "cephfs", env={
         "CEPH_TPU_COST_ANALYSIS": "1"})["launches"]
+    # 5l. the multi-device mesh: steps, engine and a cluster on slots
+    mesh = phase_in_child(MESH_CHILD_ARG, "mesh")
+    mesh_launches = mesh["launches"]
+    emit({"phase": "mesh_vs_engine", "card": smi,
+          "engine_5b": drain,
+          **{f"mesh_{name}": {"shape": mesh["shapes"][name],
+                              "label": mesh["meshes"][name],
+                              **{key: mesh[name]["engine"][key] for key in
+                                 ("drain_wall_s", "drain_GBps")}}
+             for name in ("a", "b")}})
     # 5d. deep scrub over BlockStore
     scrub_launches = phase_in_child(SCRUB_CHILD_ARG, "scrub")["launches"]
 
@@ -5095,6 +5544,8 @@ def main() -> int:
                           in rgw_launches.items()},
          "cephfs_launches": {step: n["gf_matvec"] for step, n
                              in cephfs_launches.items()},
+         "mesh_launches": {step: n["gf_matvec"] for step, n
+                           in mesh_launches.items()},
          "scrub_launches": {step: n["gf_matvec"] for step, n
                             in scrub_launches.items()},
          "decode": {label: {key: timings[label][key] for key in
@@ -5124,6 +5575,8 @@ def main() -> int:
                           in rgw_launches.items()},
          "cephfs_launches": {step: n["crc32c_rows"] for step, n
                              in cephfs_launches.items()},
+         "mesh_launches": {step: n["crc32c_rows"] for step, n
+                           in mesh_launches.items()},
          "scrub_launches": {step: n["crc32c_rows"] for step, n
                             in scrub_launches.items()}},
     ] + clay + [
@@ -5156,6 +5609,8 @@ if __name__ == "__main__":
         raise SystemExit(child_main(rgw_phase))
     if CEPHFS_CHILD_ARG in sys.argv[1:]:
         raise SystemExit(child_main(cephfs_phase))
+    if MESH_CHILD_ARG in sys.argv[1:]:
+        raise SystemExit(child_main(mesh_phase))
     if WITNESS_CHILD_ARG in sys.argv[1:]:
         armed = WITNESS_UNARMED_ARG not in sys.argv[1:]
         raise SystemExit(child_main(

@@ -29,8 +29,10 @@ RGW GET over HTTP on such a pool with one OSD down launches B1 and returns
 the PUT bytes (phase 5j's step (d)); a CephFS file and its ``.snap``
 copy on such a pool, read through an MDS and a mount with one OSD down,
 launch B1 and return their bytes, and the snapshot's copy-on-write clone
-launches B1 and B2 (phase 5k's steps (c) and (d)). Every test here needs
-an NVIDIA GPU and skips without one.
+launches B1 and B2 (phase 5k's steps (c) and (d)). The mesh's sharded
+steps on CUDA slots (one slot, and 8 slots on one card) equal the same
+steps on CPU slots, a 64 x 176 matrix tiled over B1 included. Every test
+here needs an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -1050,3 +1052,69 @@ def test_cephfs_read_on_cuda_with_an_osd_down(cuda):
     finally:
         for k, v in old.items():
             conf.set(k, v)
+
+
+@pytest.mark.parametrize("slots", [1, 8])
+def test_sharded_steps_on_cuda_slots_match_plain(cuda, slots):
+    """The mesh's sharded steps on CUDA slots (one slot, and a (2, 4)
+    mesh of 8 slots on one card, each launching on its own stream) equal
+    the same steps on CPU slots, the kernels' plain versions: the encode
+    with and without placement (chunks and csum), the degraded read of
+    two lost chunks with its gather, the verify with planted flips, and a
+    64 x 176 matrix past B1's limit, tiled. Every slot launches B1 (and
+    B2 in the verify) the expected number of times."""
+    from ceph_tpu_torch.parallel import mesh as mesh_mod, sharded_codec
+    card = mesh_mod.make_mesh(slots, devices=[cuda] * slots)
+    cpu = mesh_mod.make_mesh(slots, devices=["cpu"] * slots)
+    assert card.shape == cpu.shape
+    stripe, shard = card.shape["stripe"], card.shape["shard"]
+    k, m = 8, 3
+    mat = gf256.rs_matrix_isa(k, m)
+    gen = gf256.systematic_generator(mat)
+    data = _bytes(61, stripe * 4, k, shard * 4096)
+    full = np.stack([np.concatenate([d, gf256.gf_matvec_chunks(mat, d)])
+                     for d in data])
+    present, lost = [2, 3, 4, 5, 6, 7, 8, 9], [0, 1]
+    surv = np.ascontiguousarray(full[:, present])
+    vbatch = np.ascontiguousarray(np.repeat(full[:1], 2 * slots, axis=0)
+                                  [:, :, :8192])
+    vbatch[0, 0, 3] ^= 1
+    vbatch[-1, k + m - 1, 100] ^= 0x80
+    wide = _bytes(62, 64, 176)
+    wide_x = _bytes(63, stripe, 176, shard * 512)
+
+    def run(msh):
+        out = {}
+        for place in (True, False):
+            chunks, csum = sharded_codec.make_encode_step(
+                msh, mat, place=place)(
+                    sharded_codec.shard_stripe_batch(msh, data))
+            out[f"encode{place}"] = (np.asarray(chunks), np.asarray(csum))
+        rec, gathered = sharded_codec.make_degraded_read_step(
+            msh, gen, present, lost)(
+                sharded_codec.shard_stripe_batch(msh, surv))
+        out["read"] = (np.asarray(rec), np.asarray(gathered))
+        gf_cuda.reset_launches()
+        crc32c_cuda.reset_launches()
+        mism, lin = sharded_codec.make_verify_step(msh, mat, k)(
+            sharded_codec.shard_object_batch(msh, vbatch))
+        out["verify"] = (np.asarray(mism), np.asarray(lin))
+        out["verify_launches"] = (gf_cuda.launches, crc32c_cuda.launches)
+        gf_cuda.reset_launches()
+        rec, gathered = sharded_codec.make_matrix_step(msh, wide)(
+            sharded_codec.shard_stripe_batch(msh, wide_x))
+        out["wide"] = (np.asarray(rec), np.asarray(gathered))
+        out["wide_launches"] = gf_cuda.launches
+        return out
+
+    got, want = run(card), run(cpu)
+    for key in ("encodeTrue", "encodeFalse", "read", "verify", "wide"):
+        for a, b in zip(got[key], want[key]):
+            assert a.dtype == b.dtype and np.array_equal(a, b), key
+    assert got["verify_launches"] == (slots, slots)
+    assert got["wide_launches"] == 4 * slots       # 2 row x 2 column tiles
+    assert np.array_equal(got["read"][0], full[:, lost])
+    assert np.array_equal(got["wide"][0], np.stack(
+        [gf256.gf_matvec_chunks(wide, x) for x in wide_x]))
+    assert got["verify"][0][0].all() and got["verify"][0][-1, m - 1]
+    assert not got["verify"][0][1:-1].any()

@@ -18,7 +18,9 @@ from ceph_tpu.osd import ec_util as ref_ec
 from ceph_tpu_torch.models import from_reference_profile
 from ceph_tpu_torch.ops import crc32c_cuda, gf_cuda
 from ceph_tpu_torch.osd import ec_util
+from ceph_tpu_torch.parallel.mesh import make_mesh
 from ceph_tpu_torch.utils import checksum
+from ceph_tpu_torch.utils.device_telemetry import telemetry
 
 K, M = 8, 3
 
@@ -143,8 +145,20 @@ def test_gates_and_plain_routes(codecs, monkeypatch):
     guarded = _flush(ec_util.StripeBatcher, sinfo, port, bufs,
                      with_crcs=True)
     assert [r[2] for r in guarded] == [None, None]
-    with pytest.raises(NotImplementedError):
-        ec_util.StripeBatcher(sinfo, port, mesh=object())
+    # a mesh batcher: the sharded encode (no crcs, the same bytes) for a
+    # codec that can fuse; the plain flush for one that cannot
+    mesh = make_mesh(2, devices=["cpu", "cpu"])
+    for codec, path in ((port, "mesh"), (numpy_port, "plain")):
+        b = ec_util.StripeBatcher(sinfo, codec, mesh=mesh)
+        for op, buf in enumerate(bufs):
+            b.append(f"op{op}", buf)
+        dispatches = telemetry().perf.dump().get("mesh_dispatches", 0)
+        for a, c in zip(fused, b.flush(with_crcs=True)):
+            assert c[2] is None
+            for i in range(K + M):
+                assert np.array_equal(a[1][i], c[1][i])
+        assert telemetry().perf.dump().get("mesh_dispatches", 0) == \
+            dispatches + (path == "mesh")
 
 
 def test_cpu_flush_launches_no_kernel(codecs):

@@ -35,6 +35,8 @@ from ceph_tpu_torch.ops import crc32c_torch, gf256
 from ceph_tpu_torch.osd import ec_util, scrub_engine as se
 from ceph_tpu_torch.osd.osd import OSD
 from ceph_tpu_torch.osd.pg import PGMETA, pg_cid
+from ceph_tpu_torch.parallel import sharded_codec
+from ceph_tpu_torch.parallel.mesh import make_mesh
 from ceph_tpu_torch.qa.cluster import MiniCluster
 from ceph_tpu_torch.utils import checksum
 from ceph_tpu_torch.utils.admin_socket import asok_command
@@ -107,11 +109,26 @@ def test_verify_batch_matches_reference(case):
     assert {i for i in range(n_obj) if mism[i].any()} == rotten
 
 
-def test_verify_batch_refuses_a_mesh():
+def test_verify_batch_refuses_a_mesh(monkeypatch):
+    """A faulted mesh verify raises: the single-device program does not
+    judge the batch in its place (and an intact mesh verify gives the
+    single-device verdicts)."""
     mat = _coding_matrix("jerasure", 2, 1)
-    with pytest.raises(NotImplementedError):
-        se.verify_batch(mat, 2, np.zeros((1, 3, 4096), np.uint8),
-                        mesh=object(), device="cpu")
+    batch = np.zeros((3, 3, 4096), np.uint8)
+    batch[1, 0, 7] = 1                     # parity no longer matches
+    mesh = make_mesh(2, devices=["cpu", "cpu"])
+    want = se.verify_batch(mat, 2, batch, device="cpu")
+    got = se.verify_batch(mat, 2, batch, mesh=mesh, device="cpu")
+    for a, b in zip(want, got):
+        assert np.array_equal(a, b)
+    assert got[0][1].any() and not got[0][0].any()
+
+    def boom(*a, **k):
+        raise RuntimeError("poisoned mesh verify")
+
+    monkeypatch.setattr(sharded_codec, "matmul_local", boom)
+    with pytest.raises(RuntimeError, match="poisoned"):
+        se.verify_batch(mat, 2, batch, mesh=mesh, device="cpu")
 
 
 def test_100_same_shape_scrub_batches_one_program():
