@@ -19,7 +19,8 @@ Layers, mirroring the reference layout:
   - ``ceph_tpu_torch.client``   — librados-style client and Objecter
   - ``ceph_tpu_torch.qa``       — ``MiniCluster``
   - ``ceph_tpu_torch.bench``    — ``ceph_erasure_code_benchmark``-compatible CLI
-  - ``ceph_tpu_torch.tools``    — the corpus tool and ``objectstore_tool``
+  - ``ceph_tpu_torch.tools``    — the corpus tool, ``objectstore_tool``, the
+    ``ceph``/``rados``/``rbd`` CLIs, ``vstart`` and the offline tools
 
 Entry points take an explicit ``device=`` and run on ``cuda`` unless the
 caller passes ``device="cpu"``.

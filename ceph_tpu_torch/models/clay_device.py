@@ -31,8 +31,10 @@ Three forms, each byte-identical to the host oracle:
 
 The returned callables take and return torch tensors and run where their
 input lies: a kernel for a CUDA tensor (or raise), the plain version for a
-CPU tensor. The reference's ``build_encode_fused`` (one XLA program, a
-recorded negative result with no Pallas kernel) is not ported yet.
+CPU tensor. :func:`build_encode_fused` is the reference's one-XLA-program
+encode (a recorded negative result there, no Pallas kernel): the same
+three stages composed in one torch function, the plane-wise MDS as one
+bit-sliced ``torch.matmul``. No daemon path calls it.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch.ops import backend as backend_mod
-from ceph_tpu_torch.ops import clay_cuda, gf256, gf_block_sparse, gf_torch
+from ceph_tpu_torch.ops import (bitmatrix, clay_cuda, gf256, gf_block_sparse,
+                                gf_torch)
 from ceph_tpu_torch.utils.lru import BoundedLRU
 
 
@@ -423,6 +426,55 @@ def build_encode_fast(codec, tables_only: bool = False):
 
     encode_fast.tables = tables
     return encode_fast
+
+
+def build_encode_fused(codec):
+    """The three structured-encode stages composed in one function, with
+    the plane-wise MDS product done inline as a bit-sliced matrix product
+    (the reference's single-XLA-program form, which it records as a
+    negative result: outside a kernel the gathers and the bit planes
+    materialize). No daemon path calls it; kernel B3 is the encode.
+
+    Stage 2 is ONE ``torch.matmul`` of the 0/1 bit-matrix ``[8m, 8kk]``
+    by the data's bit planes ``[8kk, ssc*L]``, in float32 (CUDA has no
+    int8 matmul; every sum is at most 8*kk, exact in float32), then
+    ``& 1`` and the planes repacked into bytes. Any L, no padding.
+
+    Returns ``[k, ssc, L] uint8 tensor -> [m, ssc, L]`` on the input's
+    device."""
+    tb = build_encode_fast(codec, tables_only=True).tables
+    kk, ssc, m = tb["kk"], tb["ssc"], tb["m"]
+    bmat = torch.from_numpy(
+        bitmatrix.expand_bitmatrix(tb["dmat"]).astype(np.float32))
+    src, virt = np.maximum(tb["src"], 0), tb["src"] < 0
+
+    def encode(c_data: torch.Tensor) -> torch.Tensor:
+        dev = c_data.device
+        L = c_data.shape[-1]
+        padded = c_data[_index(src, dev)]
+        padded[torch.from_numpy(virt).to(dev)] = 0
+        flat = padded.reshape(kk * ssc, L)
+        u_d = _varmul(flat[:, None, :], tb["t_a1"]) ^ \
+            _varmul(flat[_index(tb["perm"], dev)][:, None, :], tb["t_a2"])
+        shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+        # bit plane 8j+c = bit c of row j, as expand_bitmatrix orders them
+        dbits = ((u_d.reshape(kk, 1, ssc * L) >> shifts[None, :, None])
+                 & 1).reshape(8 * kk, ssc * L).to(torch.float32)
+        acc = torch.matmul(bmat.to(dev), dbits)
+        pbits = (acc.to(torch.int32) & 1).to(torch.uint8).reshape(
+            m, 8, ssc * L)
+        u_p = (pbits << shifts[None, :, None]).sum(
+            dim=1, dtype=torch.int32).to(torch.uint8)
+        flat_u = u_p.reshape(m * ssc, L)
+        out = _varmul(flat[_index(tb["perm_c"], dev)][:, None, :],
+                      tb["t_b1"]) ^ \
+            _varmul(flat_u[:, None, :], tb["t_b2"]) ^ \
+            _varmul(flat_u[_index(tb["perm_u"], dev)][:, None, :],
+                    tb["t_b3"])
+        return out.reshape(m, ssc, L)
+
+    encode.tables = tb
+    return encode
 
 
 def encode_kernel_arrays(tb: dict) -> dict:

@@ -31,10 +31,14 @@ streams (:func:`slot_stream`, one a window slot, so consecutive
 flushes overlap across streams) and parks its ``finalize`` — which waits
 on that stream's event — on a bounded in-flight deque. Up to ``window``
 (default 3) batches stay in flight. A RETIRE thread harvests them strictly
-FIFO, so continuations dispatch in submission order, and every ordering
-point — ``stage_barrier``, ``run_sync``, ``stop``, a launch failure —
-drains the whole window first. ``window=1`` is the serial engine. On the
-CPU the same threads run the kernels' plain versions.
+FIFO, so continuations dispatch in submission order, and starts a harvest
+only while the engine thread has nothing to launch (the reference's
+harvest runs beside the launches; here both threads share the
+interpreter lock, and a launch run beside a harvest waits on it at every
+PyTorch call). Every ordering point — ``stage_barrier``, ``run_sync``,
+``stop``, a launch failure — drains the whole window first. ``window=1``
+is the serial engine. On the CPU the same threads run the kernels' plain
+versions.
 
 Multi-device routing: when a process default mesh is set
 (parallel/mesh.py), flushes whose batch reaches ``mesh_flush_bytes``
@@ -492,6 +496,10 @@ class DeviceEncodeEngine:
         self._inflight: collections.deque = collections.deque()
         self._ifcv = make_condition("engine.inflight")
         self._retiring = False        # retire thread mid-harvest
+        #: the engine thread is taking in ops or launching a flush; the
+        #: retire thread starts a harvest only while this is False (see
+        #: _retire_run). Every wait of the engine thread clears it.
+        self._launching = False
         self._retire_stop = False
         self._thread = threading.Thread(
             target=self._run, name="ec-device-engine", daemon=True)
@@ -733,7 +741,16 @@ class DeviceEncodeEngine:
     def _retire_run(self) -> None:
         """Harvest launched batches strictly FIFO on a dedicated thread:
         while batch N's finalize waits HERE, the engine thread keeps
-        staging and launching batches N+1.."""
+        staging and launching batches N+1..
+
+        Launches come first: a harvest starts only once the engine
+        thread has nothing to launch (it waits for ops, for a window
+        slot or for the window to drain). Both threads run Python under
+        one interpreter lock, and a harvest (its output split and
+        continuation dispatch) run beside a launch stretches every
+        PyTorch call of the launch; so batch N+1 goes to the device
+        before the host works on batch N, and the device computes N+1
+        while N is harvested."""
         while True:
             with self._ifcv:
                 while not self._inflight and not self._retire_stop:
@@ -743,6 +760,8 @@ class DeviceEncodeEngine:
                 entry = self._inflight.popleft()
                 self._retiring = True
                 self._ifcv.notify_all()
+                while self._launching:
+                    self._ifcv.wait()
             try:
                 self._retire_one(entry)
             finally:
@@ -751,10 +770,36 @@ class DeviceEncodeEngine:
                     self._ifcv.notify_all()
 
     # -- engine thread ------------------------------------------------
+    @contextlib.contextmanager
+    def _yielding(self):
+        """The engine thread waits, or runs a caller's code: the retire
+        thread may harvest meanwhile (see _retire_run)."""
+        with self._ifcv:
+            prev, self._launching = self._launching, False
+            self._ifcv.notify_all()
+        try:
+            yield
+        finally:
+            with self._ifcv:
+                self._launching = prev
+
     def _run(self) -> None:
+        try:
+            self._run_loop()
+        finally:
+            with self._ifcv:
+                self._launching = False
+                self._ifcv.notify_all()
+
+    def _run_loop(self) -> None:
         while True:
             pidle = _prof.push_stage("idle")
+            with self._ifcv:
+                self._launching = False
+                self._ifcv.notify_all()
             item = self._q.get()
+            with self._ifcv:
+                self._launching = True
             _prof.pop_stage(pidle)
             if item is None:
                 self._drain_inflight()
@@ -815,7 +860,8 @@ class DeviceEncodeEngine:
                     t0 = _time.perf_counter()
                     prev_stage = _prof.push_stage("scrub")
                     try:
-                        box[0] = fn()
+                        with self._yielding():
+                            box[0] = fn()
                     except Exception as exc:
                         box[1] = exc
                     finally:
@@ -832,9 +878,10 @@ class DeviceEncodeEngine:
                     pending, dec_pending, nbytes = {}, {}, 0
                     _, key, fn = item
                     # ...and after the last flush group SHIPPED
-                    self._after_last_group(
-                        lambda key=key, fn=fn:
-                        self._dispatch(key, fn))
+                    with self._yielding():
+                        self._after_last_group(
+                            lambda key=key, fn=fn:
+                            self._dispatch(key, fn))
                 try:
                     item = self._q.get_nowait()
                 except queue.Empty:
@@ -984,10 +1031,20 @@ class DeviceEncodeEngine:
         """Block until the launch window has a free slot (counting a
         batch mid-harvest); returns the window it was free in."""
         with self._ifcv:
-            while len(self._inflight) + \
-                    (1 if self._retiring else 0) >= self._window:
-                self._ifcv.wait()
+            self._wait_locked(lambda: len(self._inflight) + (
+                1 if self._retiring else 0) >= self._window)
             return self._window
+
+    def _wait_locked(self, blocked: Callable[[], bool]) -> None:
+        """Engine thread, holding ``_ifcv``: wait while ``blocked()``,
+        letting the retire thread harvest meanwhile."""
+        if not blocked():
+            return
+        prev, self._launching = self._launching, False
+        self._ifcv.notify_all()
+        while blocked():
+            self._ifcv.wait()
+        self._launching = prev
 
     def _park(self, entry) -> None:
         """Hand a launched (or poison) batch to the retire thread:
@@ -1013,8 +1070,8 @@ class DeviceEncodeEngine:
         """Wait until the retire thread has harvested EVERY in-flight
         batch (ordering points: barrier, run_sync, stop)."""
         with self._ifcv:
-            while self._inflight or self._retiring:
-                self._ifcv.wait()
+            self._wait_locked(lambda: bool(self._inflight or
+                                           self._retiring))
         return 0.0
 
     def _retire_one(self, entry) -> float:
@@ -1103,7 +1160,8 @@ class DeviceEncodeEngine:
             return
         prev_stage = _prof.push_stage("device_finalize")
         try:
-            self._flush_decodes_inner(dec_pending)
+            with self._yielding():
+                self._flush_decodes_inner(dec_pending)
         finally:
             _prof.pop_stage(prev_stage)
 

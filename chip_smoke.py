@@ -127,12 +127,11 @@ Phases, each printing one JSON line:
    (counts zeroed before and read after each step). It runs in a child
    process like 5c (``--scrub-phase``), which takes no profiler session,
    and it runs last. The cluster children (5c, 5e, 5f, 5g, 5h, 5i, 5j, 5k,
-   5l, 5d) run
-   after phase 13: profiler sessions in this process after a cluster child
-   have come back empty (phase 8). The ``scrub_times`` line, in
-   phase 5, gives the verify program's events and profiler device ms at
-   5d's batch shape (16 objects of 11 shards of 128 KiB: seeded bytes,
-   their parity and one flip) beside its bound;
+   5l, 5m, 5d) run after phase 13: profiler sessions in this process
+   after a cluster child have come back empty (phase 8). The
+   ``scrub_times`` line, in phase 5, gives the verify program's events
+   and profiler device ms at 5d's batch shape (16 objects of 11 shards of
+   128 KiB: seeded bytes, their parity and one flip) beside its bound;
 5e. crimson: 5c's deployment on crimson OSDs (``osd_flavor="crimson"``,
    3 reactors an OSD, each with its own memstore; the mainline
    ``ECBackend`` and the shared engine on every reactor): 256 objects of
@@ -357,6 +356,38 @@ Phases, each printing one JSON line:
    the per-slot launches by step, the engine's stats and the cluster's
    mesh counters by step; ``mesh_vs_engine`` puts the drains beside 5b's.
    Runs in a child process (``--mesh-phase``);
+5m. tools: the host tools against a ``vstart`` cluster, and Clay's
+   fused-encode composition. ``tools/vstart.start(["-n", "12", "--ec",
+   "8,3", "--prometheus"])`` boots 12 OSDs with vstart's jerasure
+   ``reed_sol_van`` k=8,m=3 pool ``ecpool`` on its default backend,
+   ``auto_device``: the card. 32 objects of 4 MiB (128 MiB) are written
+   with ``write_full`` from 8 threads (the engine's fused flush: B1 and
+   B2) and read back, between ``ceph daemon <osd.asok> profile start``
+   and ``profile stop``. Then each tool runs as ``python -m
+   ceph_tpu_torch.tools.<name>`` with its own timeout, its exit code and
+   output checked: ``ceph -m`` ``status`` (12 OSDs up), ``health
+   detail``, ``osd tree``, ``osd pool ls`` (``ecpool``), ``osd
+   erasure-code-profile get ecpool_profile`` (k=8, m=3, backend
+   ``cuda``); ``ceph daemon`` ``perf dump`` on the OSD that batched the
+   most (``device_batches`` > 0) and ``device perf dump`` (the engine
+   retired flushes, 128 MiB encoded); ``osdmaptool -m --test-map-pgs`` (0
+   bad mappings, every PG's slots counted; each PG of ``ecpool`` maps to
+   11 distinct OSDs in the map it read); ``crushtool --build 12`` then
+   ``--test --num-rep 11`` on that map (no short mapping; ``--build``
+   returns before ``--test`` in both packages); ``dencoder test`` (0
+   failures); ``profile flame`` rendered by ``flame --top 10`` (not
+   empty). Four objects' shards are read from their OSDs' stores (data
+   against the object, parity against the host GF oracle), and one
+   object's ``hinfo`` attr, whose crcs B2 computed on the card,
+   round-trips through ``dencoder type HashInfo dump_json`` and the
+   dencoder's ``HashInfo`` entry byte for byte, its crcs equal to the
+   host crc32c of the shards read back. ``stop()`` must stop the cluster
+   (the mon's port then refuses). Last, ``build_encode_fused`` at phase
+   7's Clay k=8,m=4,d=11 shape ([8, 64, 256 Ki]) on the card must equal
+   B3 byte for byte; both are timed through the entry point. The
+   ``tools`` line prints each step's wall and B1/B2 launches, the
+   tools' checked outputs and the fused and B3 ms. Runs in a child
+   process (``--tools-phase``);
 6. Clay kernels against their plain versions on the card, byte-exact: B3
    and B4 over k=8,m=4,d=11, k=4,m=2 and k=4,m=3,d=6 (virtual nodes) at
    ragged L (B3 also at 64 and 32 Ki lanes, its short form; B3 and B4 from
@@ -440,6 +471,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -501,6 +533,17 @@ SCRUB_BATCH_OBJECTS = SCRUB_OBJECTS // CLUSTER_PG_NUM
 MESH_LOGICAL = {"stripe": 2, "shard": 4}
 MESH_CLUSTER_OBJECTS = 64
 MESH_DEGRADED_READS = 32
+
+#: phase 5m: the host tools against a vstart cluster of 12 OSDs with an
+#: EC k=8,m=3 pool on the card: 32 objects of 4 MiB (128 MiB, one fused
+#: flush's worth), written from 8 threads; 4 objects' shards read back
+#: from the stores; every tool process has its own timeout, seconds
+TOOLS_OSDS = 12
+TOOLS_OBJECTS = 32
+TOOLS_OBJECT_BYTES = 4 << 20
+TOOLS_CLIENTS = 8
+TOOLS_CHECKED = 4
+TOOL_TIMEOUT = 120
 
 #: the repo's Clay deployment (BASELINE.json configs[3], bench.py:546):
 #: q=4, t=3, nu=0, 64 sub-chunks per chunk
@@ -4101,7 +4144,295 @@ def mesh_phase(smi: str, backend: str = "cuda",
     return out
 
 
-#: the arguments that run phases 5c-5l alone (each the child process of
+def _tool(walls: dict, label: str, name: str, *argv: str,
+          stdin: bytes | None = None, rc: int = 0) -> str:
+    """Run ``python -m ceph_tpu_torch.tools.<name> argv`` from the
+    repository root with its own timeout; record its wall under
+    ``label``, require exit code ``rc`` and return its stdout."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"ceph_tpu_torch.tools.{name}", *argv],
+        input=stdin, capture_output=True, timeout=TOOL_TIMEOUT,
+        cwd=Path(__file__).resolve().parent)
+    walls[label] = time.perf_counter() - t0
+    check(proc.returncode == rc,
+          f"5m: {name} {' '.join(argv)} exited {proc.returncode}, not "
+          f"{rc}: {proc.stderr.decode(errors='replace')[-2000:]}")
+    return proc.stdout.decode()
+
+
+def tools_phase(smi: str, backend: str = "cuda",
+                n_obj: int = TOOLS_OBJECTS,
+                obj_bytes: int = TOOLS_OBJECT_BYTES,
+                clay_lanes: int = CLAY_SUB) -> dict:
+    """Phase 5m: the host tools against a ``vstart`` cluster whose EC
+    k=8,m=3 pool runs on the card, and Clay's fused-encode composition
+    against B3 (see the module docstring). ``backend="torch"`` runs it on
+    the CPU with the plain versions (a rehearsal, where no launch is
+    counted and nothing is timed on a card)."""
+    import socket
+    import tempfile
+    import urllib.request
+
+    from ceph_tpu_torch.bench.ec_bench import time_cuda
+    from ceph_tpu_torch.models import clay_device, instance
+    from ceph_tpu_torch.ops import clay_cuda, crc32c_cuda, gf_cuda
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd.pg import pg_cid
+    from ceph_tpu_torch.tools import dencoder, vstart
+    from ceph_tpu_torch.utils import checksum
+    from ceph_tpu_torch.utils.config import g_conf
+
+    on_card = backend == "cuda"
+    t_phase = time.perf_counter()
+    walls, launches, tools = {}, {}, {}
+    rng = np.random.default_rng(SEED + 31)
+    pays = {f"t{i}": rng.integers(0, 256, obj_bytes, dtype=np.uint8)
+            .tobytes() for i in range(n_obj)}
+    oids = sorted(pays)
+
+    def step(label, fn):
+        gf_cuda.reset_launches()
+        crc32c_cuda.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        walls[label] = time.perf_counter() - t0
+        launches[label] = {"gf_matvec": gf_cuda.launches,
+                           "crc32c_rows": crc32c_cuda.launches}
+        return out
+
+    argv = ["-n", str(TOOLS_OSDS), "--ec", f"{K},{M}", "--prometheus"]
+    if not on_card:
+        argv += ["--backend", backend]
+    # Ceph's default grace for the cluster's life, as 5c: the write
+    # burst must not cost an OSD
+    with _heartbeat_knobs(g_conf(), CLUSTER_GRACE):
+        cluster, info, stop = step("vstart", lambda: vstart.start(argv))
+        stopped = False
+        try:
+            addr, asoks = info["mon_addr"], info["osd_asoks"]
+            check(info["pools"] == ["rbd", "ecpool"] and
+                  len(asoks) == TOOLS_OSDS, f"5m: vstart info {info}")
+            metrics = urllib.request.urlopen(info["metrics_url"],
+                                             timeout=10).read().decode()
+            check("ceph_tpu_" in metrics, "5m: /metrics answered no sample")
+            osdmap = cluster.mon.osdmap
+            pool_id = osdmap.pool_by_name["ecpool"]
+            profiled = asoks[0]
+            started = json.loads(_tool(walls, "profile start", "ceph_cli",
+                                       "daemon", profiled, "profile", "start"))
+            check(started.get("running") is True,
+                  f"5m: profile start {started}")
+            io = cluster.client().open_ioctx("ecpool")
+            step("write", lambda: _threaded(
+                lambda i: io.write_full(oids[i], pays[oids[i]]), n_obj,
+                TOOLS_CLIENTS))
+
+            def read_all():
+                def one(i):
+                    check(io.read(oids[i]) == pays[oids[i]],
+                          f"5m: {oids[i]} read back differs")
+                _threaded(one, n_obj, TOOLS_CLIENTS)
+            step("read", read_all)
+            stopped_prof = json.loads(_tool(walls, "profile stop", "ceph_cli",
+                                            "daemon", profiled, "profile",
+                                            "stop"))
+            check(stopped_prof.get("running") is False and
+                  stopped_prof.get("samples", 0) > 0,
+                  f"5m: profile stop {stopped_prof}")
+            if on_card:
+                w = launches["write"]
+                check(w["gf_matvec"] > 0 and w["crc32c_rows"] > 0,
+                      f"5m: the writes launched no B1 or B2: {w}")
+
+            # -- the tools that only read, one process each, four at a time:
+            # the ceph CLI over the mon and the admin sockets, osdmaptool on
+            # the live map, crushtool (a map built, then tested), dencoder.
+            # The OSDs share one process-wide engine, which counts its flushes
+            # in the device counters, not in an OSD's ``device_batches`` (as
+            # in the reference); ``perf dump`` goes to the OSD with the most
+            # client writes
+            writes = {i: o.logger.get("op_w") for i, o in cluster.osds.items()}
+            busiest = max(writes, key=writes.get)
+            with tempfile.TemporaryDirectory() as tmp:
+                cmap = str(Path(tmp) / "crush.json")
+                runs = {
+                    "ceph status": ("ceph_cli", "-m", addr, "status"),
+                    "ceph health detail": ("ceph_cli", "-m", addr, "health",
+                                           "detail"),
+                    "ceph osd tree": ("ceph_cli", "-m", addr, "osd", "tree"),
+                    "ceph osd pool ls": ("ceph_cli", "-m", addr, "osd", "pool",
+                                         "ls"),
+                    "ceph ec profile get": ("ceph_cli", "-m", addr, "osd",
+                                            "erasure-code-profile", "get",
+                                            "ecpool_profile"),
+                    "ceph daemon perf dump": ("ceph_cli", "daemon",
+                                              asoks[busiest], "perf", "dump"),
+                    "ceph daemon device perf dump": (
+                        "ceph_cli", "daemon", asoks[busiest], "device", "perf",
+                        "dump"),
+                    "osdmaptool": ("osdmaptool", "-m", addr, "--test-map-pgs"),
+                    "dencoder test": ("dencoder", "test"),
+                }
+
+                def crushtool():
+                    _tool(walls, "crushtool build", "crushtool", "--build",
+                          str(TOOLS_OSDS), "--out", cmap)
+                    return _tool(walls, "crushtool test", "crushtool", "--map",
+                                 cmap, "--test", "--num-rep", str(K + M))
+
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(4) as pool:
+                    futs = {label: pool.submit(_tool, walls, label, *argv)
+                            for label, argv in runs.items()}
+                    futs["crushtool"] = pool.submit(crushtool)
+                    outs = {label: f.result() for label, f in futs.items()}
+                walls["read-only tools"] = time.perf_counter() - t0
+
+                st = json.loads(outs["ceph status"])
+                check(st["num_up_osds"] == st["num_osds"] == TOOLS_OSDS and
+                      "ecpool" in st["pools"], f"5m: status {st}")
+                health = json.loads(outs["ceph health detail"])
+                tree = json.loads(outs["ceph osd tree"])
+                check(sorted(o["id"] for o in tree["osds"] if o["up"]) ==
+                      list(range(TOOLS_OSDS)), f"5m: osd tree {tree['osds']}")
+                check("ecpool" in json.loads(outs["ceph osd pool ls"]),
+                      f"5m: pool ls {outs['ceph osd pool ls']}")
+                prof = json.loads(outs["ceph ec profile get"])
+                want_backend = "cuda" if on_card else backend
+                check((prof["k"], prof["m"], prof["backend"]) ==
+                      (str(K), str(M), want_backend),
+                      f"5m: ecpool profile {prof}")
+                perf = json.loads(outs["ceph daemon perf dump"])
+                check(perf["op_w"] == writes[busiest] > 0,
+                      f"5m: osd.{busiest} perf dump op_w {perf.get('op_w')}")
+                dperf = json.loads(
+                    outs["ceph daemon device perf dump"])["counters"]
+                flushes = sum(dperf["encode_batch_ops"])
+                check(dperf["engine_retired"] >= flushes > 0 and
+                      dperf["bytes_encoded"] >= n_obj * obj_bytes,
+                      f"5m: device perf dump retired "
+                      f"{dperf['engine_retired']}, flushes {flushes}, encoded "
+                      f"{dperf['bytes_encoded']}")
+                docs = outs["osdmaptool"]
+                rep = json.loads(docs[docs.index('{\n  "pgs"'):])
+                n_pgs = sum(p.pg_num for p in osdmap.pools.values())
+                slots = sum(p.pg_num * p.size for p in osdmap.pools.values())
+                check(rep["bad_mappings"] == 0 and rep["pgs"] == n_pgs and
+                      sum(rep["pgs_per_osd"].values()) == slots,
+                      f"5m: osdmaptool {rep}")
+                for ps in osdmap.pgs_of_pool(pool_id):
+                    _, acting, _ = osdmap.pg_to_up_acting(pool_id, ps)
+                    check(len({o for o in acting if o >= 0}) == K + M,
+                          f"5m: ecpool pg {ps} acting {acting}")
+                crep = json.loads(outs["crushtool"])
+                check(crep["bad_mappings"] == 0 and
+                      len(crep["device_utilization"]) == TOOLS_OSDS,
+                      f"5m: crushtool {crep['bad_mappings']} short mappings")
+                drep = json.loads(outs["dencoder test"])
+                check(not drep["failures"] and drep["types"] >= 28,
+                      f"5m: dencoder {drep}")
+
+                # -- shards and hinfo from the stores
+                jer = instance().factory(
+                    "jerasure", {"k": str(K), "m": str(M),
+                                 "technique": "reed_sol_van"}, device="cpu")
+                checked = _check_cluster_shards(
+                    cluster, pool_id, oids[:TOOLS_CHECKED], pays, jer)
+                oid = oids[0]
+                ps = osdmap.object_to_pg(pool_id, oid)
+                _, acting, _ = osdmap.pg_to_up_acting(pool_id, ps)
+                shards, raws = {}, set()
+                for pos, osd in enumerate(acting):
+                    cid = pg_cid(pool_id, ps, pos)
+                    store = _store_with(cluster._stores[osd], cid)
+                    shards[pos] = store.read(cid, oid)
+                    raws.add(bytes(store.getattrs(cid, oid)["hinfo"]))
+                check(len(raws) == 1, "5m: hinfo differs between shards")
+                raw = raws.pop()
+                spec = dencoder.STRUCTS["HashInfo"]
+                hinfo = spec["decode"](raw)
+                check(spec["encode"](hinfo) == raw,
+                      "5m: hinfo does not round-trip through the dencoder")
+                dumped = json.loads(_tool(walls, "dencoder hinfo", "dencoder",
+                                          "type", "HashInfo", "dump_json",
+                                          stdin=raw))
+                check(dumped == json.loads(raw), f"5m: dencoder dump {dumped}")
+                host = [checksum.crc32c(np.frombuffer(shards[p], np.uint8),
+                                        ec_util.HINFO_SEED)
+                        for p in range(K + M)]
+                check(hinfo.cumulative_shard_hashes == host and
+                      hinfo.total_chunk_size == len(shards[0]),
+                      "5m: hinfo crcs differ from the host crc32c")
+
+                # -- the profile, rendered
+                folded = Path(tmp) / "osd.folded"
+                folded.write_text(_tool(walls, "profile flame", "ceph_cli",
+                                        "daemon", profiled, "profile",
+                                        "flame"))
+                top = _tool(walls, "flame", "flame", "--top", "10",
+                            str(folded))
+                check(len(top.splitlines()) > 1, f"5m: flame printed {top!r}")
+                tools["flame_top"] = top.splitlines()[:4]
+            tools.update({
+                "health": health["status"],
+                "health_checks": sorted(health["checks"]),
+                "profile": prof, "busiest_osd": busiest,
+                "perf_op_w": perf["op_w"], "engine_flushes": flushes,
+                "engine_retired": dperf["engine_retired"],
+                "bytes_encoded": dperf["bytes_encoded"],
+                "osdmaptool": {key: rep[key] for key in ("pgs", "bad_mappings",
+                                                         "spread")},
+                "crushtool": {key: crep[key] for key in ("inputs",
+                                                         "bad_mappings",
+                                                         "spread")},
+                "dencoder_types": drep["types"],
+                "shards_checked": checked,
+                "hinfo": {"oid": oid, "hashes": hinfo.cumulative_shard_hashes},
+                "profile_samples": stopped_prof["samples"]})
+            mon_host, mon_port = addr.rsplit(":", 1)
+            step("stop", stop)
+            stopped = True
+            check(not cluster.osds and not cluster.mons,
+                  "5m: daemons left after stop")
+            try:
+                socket.create_connection((mon_host, int(mon_port)),
+                                         timeout=2).close()
+                refused = False
+            except OSError:
+                refused = True
+            check(refused, f"5m: the mon at {addr} still answers after stop")
+        finally:
+            if not stopped:
+                stop()
+
+    # -- Clay's fused encode against B3 at phase 7's shape
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    codec = instance().factory("clay", dict(CLAY), device=dev)
+    x = torch.from_numpy(rng.integers(
+        0, 256, (codec.k, codec.sub_chunk_no, clay_lanes),
+        dtype=np.uint8)).to(dev)
+    fused = clay_device.build_encode_fused(codec)
+    b3 = clay_device.build_encode_kernel(codec)
+    clay_cuda.reset_launches()
+    got = fused(x)
+    check(clay_cuda.encode_launches == 0, "5m: fused encode launched B3")
+    check(torch.equal(got, b3(x)), "5m: fused encode differs from B3")
+    del got
+    clay = {"shape": list(x.shape)}
+    if on_card:
+        clay.update({"fused_ms": time_cuda(lambda: fused(x), 1) * 1e3,
+                     "b3_ms": time_cuda(lambda: b3(x), 10) * 1e3})
+    out = {"phase": "tools", "card": smi, "backend": backend,
+           "objects": n_obj, "object_bytes": obj_bytes,
+           "walls": walls, "launches": launches, "tools": tools,
+           "clay_fused": clay,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+#: the arguments that run phases 5c-5m alone (each the child process of
 #: :func:`phase_in_child`)
 CLUSTER_CHILD_ARG = "--cluster-phase"
 SCRUB_CHILD_ARG = "--scrub-phase"
@@ -4113,6 +4444,7 @@ RBD_CHILD_ARG = "--rbd-phase"
 RGW_CHILD_ARG = "--rgw-phase"
 CEPHFS_CHILD_ARG = "--cephfs-phase"
 MESH_CHILD_ARG = "--mesh-phase"
+TOOLS_CHILD_ARG = "--tools-phase"
 #: with ``--witness-phase``: 5h's steps with neither the witness nor
 #: lock timing armed (what the wrappers cost, beside an armed run)
 WITNESS_UNARMED_ARG = "--unarmed"
@@ -5472,7 +5804,7 @@ def main() -> int:
     # -- 13. the engine under torch.profiler ------------------------------
     engine_profile_phase(dev, codec, sinfo)
 
-    # -- 5c-5l. the cluster phases, each in a child process on the card,
+    # -- 5c-5m. the cluster phases, each in a child process on the card,
     # after every profiler session of this process: sessions after a
     # cluster child have come back empty (phase 8) --------------------------
     # 5c. the OSD chain: a MiniCluster pool on the card
@@ -5515,6 +5847,8 @@ def main() -> int:
                               **{key: mesh[name]["engine"][key] for key in
                                  ("drain_wall_s", "drain_GBps")}}
              for name in ("a", "b")}})
+    # 5m. the host tools against a vstart cluster; Clay's fused encode
+    tools_launches = phase_in_child(TOOLS_CHILD_ARG, "tools")["launches"]
     # 5d. deep scrub over BlockStore
     scrub_launches = phase_in_child(SCRUB_CHILD_ARG, "scrub")["launches"]
 
@@ -5546,6 +5880,8 @@ def main() -> int:
                              in cephfs_launches.items()},
          "mesh_launches": {step: n["gf_matvec"] for step, n
                            in mesh_launches.items()},
+         "tools_launches": {step: n["gf_matvec"] for step, n
+                            in tools_launches.items()},
          "scrub_launches": {step: n["gf_matvec"] for step, n
                             in scrub_launches.items()},
          "decode": {label: {key: timings[label][key] for key in
@@ -5577,6 +5913,8 @@ def main() -> int:
                              in cephfs_launches.items()},
          "mesh_launches": {step: n["crc32c_rows"] for step, n
                            in mesh_launches.items()},
+         "tools_launches": {step: n["crc32c_rows"] for step, n
+                            in tools_launches.items()},
          "scrub_launches": {step: n["crc32c_rows"] for step, n
                             in scrub_launches.items()}},
     ] + clay + [
@@ -5611,6 +5949,8 @@ if __name__ == "__main__":
         raise SystemExit(child_main(cephfs_phase))
     if MESH_CHILD_ARG in sys.argv[1:]:
         raise SystemExit(child_main(mesh_phase))
+    if TOOLS_CHILD_ARG in sys.argv[1:]:
+        raise SystemExit(child_main(tools_phase))
     if WITNESS_CHILD_ARG in sys.argv[1:]:
         armed = WITNESS_UNARMED_ARG not in sys.argv[1:]
         raise SystemExit(child_main(

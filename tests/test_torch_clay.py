@@ -7,7 +7,7 @@ the JAX package's (ceph_tpu.models.clay, .clay_device).
 - kernel B3's plain version against the reference ``build_encode_kernel``
   (Pallas, interpret mode), kernel B4's plain version against the
   reference ``build_transform_kernel`` (interpret mode) and
-  ``build_transform``;
+  ``build_transform``; ``build_encode_fused`` against the reference's;
 - the flat tables the CUDA kernels B3 and B4 read are replayed by numpy
   emulations of the kernels' loops and must give the plain versions'
   bytes (the kernels themselves run only on the card:
@@ -163,6 +163,34 @@ def test_plain_b3_equals_reference_encode_kernel(profile, sc):
     host = ref.encode_chunks(list(range(ref.k, ref.k + ref.m)), data)
     for p in range(ref.m):
         assert np.array_equal(want[p].reshape(-1), host[ref.k + p])
+
+
+@pytest.mark.parametrize("profile,sc", [(FLAGSHIP, 40), (VIRTUAL, 9)],
+                         ids=["k8m4d11", "k4m3d6"])
+def test_encode_fused_equals_reference_and_fast(profile, sc):
+    """The counterpart of the reference's
+    ``test_encode_fused_xla_bit_exact`` (seed 29, ``ssc * sc``-byte
+    chunks): the port's one-function composition, its MDS stage one
+    bit-sliced ``torch.matmul``, gives the reference's
+    ``build_encode_fused`` bytes, the plain B3's and the host oracle's.
+    No kernel launches: it is plain torch on either device."""
+    ref, port = ref_codec(profile), port_codec(profile)
+    rng = np.random.default_rng(29)
+    ssc, k, m = ref.sub_chunk_no, ref.k, ref.m
+    data = {i: rng.integers(0, 256, ssc * sc, dtype=np.uint8)
+            for i in range(k)}
+    x = np.stack([data[i].reshape(ssc, sc) for i in range(k)])
+    want = np.asarray(ref_cd.build_encode_fused(ref)(x))
+    fused = cd.build_encode_fused(port)
+    clay_cuda.reset_launches()
+    got = fused(torch.from_numpy(x))
+    assert clay_cuda.encode_launches == 0
+    assert got.dtype == torch.uint8 and got.shape == (m, ssc, sc)
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(got, cd.build_encode_fast(port)(torch.from_numpy(x)))
+    host = ref.encode_chunks(list(range(k, k + m)), data)
+    for p in range(m):
+        assert np.array_equal(want[p].reshape(-1), np.asarray(host[k + p]))
 
 
 def _mul(c, v):

@@ -31,8 +31,10 @@ copy on such a pool, read through an MDS and a mount with one OSD down,
 launch B1 and return their bytes, and the snapshot's copy-on-write clone
 launches B1 and B2 (phase 5k's steps (c) and (d)). The mesh's sharded
 steps on CUDA slots (one slot, and 8 slots on one card) equal the same
-steps on CPU slots, a 64 x 176 matrix tiled over B1 included. Every test
-here needs an NVIDIA GPU and skips without one.
+steps on CPU slots, a 64 x 176 matrix tiled over B1 included. Clay's
+``build_encode_fused`` (plain torch) gives B3's bytes, and ``vstart --ec``
+without ``--backend`` runs its pool on the card through B1 and B2. Every
+test here needs an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -41,6 +43,7 @@ PyTorch is installed:
 """
 
 import itertools
+import json
 import threading
 
 import numpy as np
@@ -1118,3 +1121,48 @@ def test_sharded_steps_on_cuda_slots_match_plain(cuda, slots):
         [gf256.gf_matvec_chunks(wide, x) for x in wide_x]))
     assert got["verify"][0][0].all() and got["verify"][0][-1, m - 1]
     assert not got["verify"][0][1:-1].any()
+
+
+@pytest.mark.parametrize("profile", CLAY_PROFILES,
+                         ids=["k8m4d11", "k4m2", "k4m3d6"])
+def test_clay_encode_fused_on_cuda_equals_b3(cuda, profile):
+    """``build_encode_fused`` (plain torch: gathers, varmul chains, the
+    MDS stage as one float32 ``torch.matmul`` of bit planes) on the card
+    gives kernel B3's bytes, at ragged L and at the main path's 2^18
+    lanes, and launches no port kernel."""
+    codec = _clay(profile, cuda)
+    fused = clay_device.build_encode_fused(codec)
+    enc = clay_device.build_encode_kernel(codec)
+    k, ssc = codec.k, codec.sub_chunk_no
+    for L in (1, 63, 4097, 1 << 18):
+        x = torch.from_numpy(_bytes(L + 7, k, ssc, L)).to(cuda)
+        clay_cuda.reset_launches()
+        gf_cuda.reset_launches()
+        got = fused(x)
+        torch.cuda.synchronize()
+        assert clay_cuda.encode_launches == 0 and gf_cuda.launches == 0
+        assert torch.equal(got, enc(x)), L
+
+
+def test_vstart_default_backend_on_the_card(cuda):
+    """``vstart --ec`` without ``--backend`` puts the pool on the card:
+    the profile says ``cuda``, a write through the shared engine launches
+    B1 and B2, and the object reads back; ``stop`` stops the cluster."""
+    from ceph_tpu_torch.tools import vstart
+    cluster, info, stop = vstart.start(["-n", "3", "--ec", "2,1"])
+    try:
+        assert info["pools"] == ["rbd", "ecpool"]
+        code, _, data = cluster.mon_cmd(
+            prefix="osd erasure-code-profile get", name="ecpool_profile")
+        assert code == 0
+        assert json.loads(data)["backend"] == "cuda"
+        gf_cuda.reset_launches()
+        crc32c_cuda.reset_launches()
+        io = cluster.client().open_ioctx("ecpool")
+        # past the engine's small-flush host route (512 KiB)
+        pay = _bytes(77, 600 << 10).tobytes()
+        io.write_full("v", pay)
+        assert gf_cuda.launches > 0 and crc32c_cuda.launches > 0
+        assert io.read("v") == pay
+    finally:
+        stop()

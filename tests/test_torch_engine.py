@@ -162,6 +162,52 @@ def test_pipelined_burst_overlaps_and_beats_serial(monkeypatch):
     assert sum(counters["engine_overlap_pct"]) >= 8
 
 
+def test_backlog_launches_before_harvest(monkeypatch):
+    """With a backlog staged, batch N+1 launches before batch N is
+    harvested: a launch that takes longer than the device's work still
+    fills the window (depth 3 of 3), and the continuations keep their
+    staging order. Without that priority the retire thread harvests each
+    batch before the next launch ends and the depth stays 1."""
+    monkeypatch.setenv("CEPH_TPU_FUSE_CRC", "1")
+
+    def fake_async(sinfo, codec, ops, bufs, batch=None):
+        time.sleep(0.03)                   # a slow host launch
+
+        def finalize():                    # the device is already done
+            shards = ec_util.encode(sinfo, _codec(), np.concatenate(bufs))
+            return [(op_id, shards, None) for op_id in ops]
+
+        return finalize
+
+    monkeypatch.setattr(ec_util, "_flush_device_fused_async", fake_async)
+    codec = _codec(backend="torch")
+    sinfo = StripeInfo(stripe_width=2 * 1024, chunk_size=1024)
+    data = np.zeros(2048, dtype=np.uint8)
+    done: list = []
+    all_done, held, gate = (threading.Event() for _ in range(3))
+    eng = DeviceEncodeEngine(lambda k, f: f(), flush_bytes=2048,
+                             window=3)
+    try:
+        holder = threading.Thread(
+            target=eng.run_sync,
+            args=(lambda: (held.set(), gate.wait(10)), 30))
+        holder.start()
+        assert held.wait(10)
+        for i in range(8):
+            eng.stage_encode("pgA", codec, sinfo, data,
+                             lambda s, c, e, i=i: (
+                                 done.append((i, e)),
+                                 len(done) == 8 and all_done.set()))
+        gate.set()
+        holder.join(10)
+        assert all_done.wait(30), done
+    finally:
+        eng.stop()
+    assert done == [(i, None) for i in range(8)], done
+    assert eng.stats["flushes"] == 8, eng.stats
+    assert eng.stats["max_inflight_depth"] == 3, eng.stats
+
+
 def test_barrier_sees_all_prior_flushes_retired(monkeypatch):
     """A barrier's fn runs only after every previously staged op's
     continuation, on the same key, under the in-flight window."""

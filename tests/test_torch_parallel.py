@@ -11,7 +11,8 @@ rows, batcher and engine results and counters, placement maps, the verify
 twin, the Clay k=4,m=2 repair). Tolerance 0. The reference's csum is a
 uint32 that wraps; the port's is an int64 holding the same value.
 
-Then: a port and a reference ``MiniCluster`` with a default mesh and
+Then ``tests/test_mesh_cluster.py``'s non-pow2 test (a 3 x 2 mesh, 5
+stripes); a port and a reference ``MiniCluster`` with a default mesh and
 placement on, whose stores end equal shard for shard; the port's
 deliberate deviation, a poisoned sharded step that fails the op with EIO
 and falls back nowhere (the reference falls back to its single-device
@@ -541,6 +542,56 @@ def test_matrix_step_tiles_wide_matrices(mesh):
     want = np.stack([ref_gf256.gf_matvec_chunks(mat, s) for s in x])
     assert np.array_equal(np.asarray(rec), want)
     assert np.array_equal(np.asarray(full), want)
+
+
+def test_non_pow2_stripe_rows_encode_decode_bit_exact():
+    """The counterpart of ``tests/test_mesh_cluster.py``'s non-pow2 test:
+    a 3 x 2 mesh (6 CPU slots; the reference's 6 of its forced host
+    devices), 5 stripes of EC k=2,m=1 (not a multiple of 3 either). The
+    batcher's mesh flush gives the host encode's parity and the
+    reference's; the decode twin rebuilds chunk 1 as the reference's
+    does; the placement map has 3 slots with (1, 2) submeshes, slot for
+    slot the reference's."""
+    msh = mesh_mod.make_mesh(6, stripe=3, shard=2, devices=["cpu"] * 6)
+    ref_msh = ref_mesh_mod.make_mesh(6, stripe=3, shard=2)
+    assert msh.shape == dict(ref_msh.shape) == {"stripe": 3, "shard": 2}
+    sinfo = StripeInfo(stripe_width=2 * 4096, chunk_size=4096)
+    ref_si = ref_ec.StripeInfo(stripe_width=2 * 4096, chunk_size=4096)
+    rng = np.random.default_rng(5)
+    bufs = [rng.integers(0, 256, 2 * 4096, dtype=np.uint8)
+            for _ in range(5)]
+    results = ec_util._flush_mesh(msh, sinfo, _codec(k=2, m=1),
+                                  list(range(5)), bufs)()
+    ref_results = ref_ec._flush_mesh(ref_msh, ref_si,
+                                     _ref_codec(k=2, m=1), list(range(5)),
+                                     bufs)()
+    host = _codec(k=2, m=1, backend="numpy")
+    for (op, shards, err), (rop, rshards, rerr), buf in zip(
+            results, ref_results, bufs):
+        assert err is None and rerr is None and op == rop
+        want = ec_util.encode(sinfo, host, buf, [2])
+        assert np.array_equal(np.asarray(shards[2]).ravel(),
+                              np.asarray(want[2]).ravel()), op
+        for i in range(3):
+            assert np.array_equal(np.asarray(shards[i]).ravel(),
+                                  np.asarray(rshards[i]).ravel()), (op, i)
+    present = {0: np.concatenate([r[1][0] for r in results]),
+               2: np.concatenate([r[1][2] for r in results])}
+    out = ec_util.flush_decode_mesh(msh, sinfo, _codec(k=2, m=1), present,
+                                    [1])
+    ref_out = ref_ec.flush_decode_mesh(ref_msh, ref_si,
+                                       _ref_codec(k=2, m=1), present, [1])
+    want = np.concatenate([b[4096:] for b in bufs])
+    assert np.array_equal(np.asarray(out[1]).ravel()[:len(want)], want)
+    assert np.array_equal(np.asarray(out[1]), np.asarray(ref_out[1]))
+    pmap = placement.PlacementMap(msh)
+    ref_pmap = ref_placement.PlacementMap(ref_msh)
+    assert pmap.n_slots == ref_pmap.n_slots == 3
+    slots = [pmap.slot((1, i)) for i in range(32)]
+    assert slots == [ref_pmap.slot((1, i)) for i in range(32)]
+    assert set(slots) == {0, 1, 2}
+    for s in range(3):
+        assert pmap.submesh(s).shape == {"stripe": 1, "shard": 2}
 
 
 def _mesh_cluster(cls, set_mesh, msh, payloads):
