@@ -115,7 +115,7 @@ def run(k: int = 8, m: int = 3, nops: int = 16,
     slope, spread_pct, samples, contended = stable_best_slope(
         step, ddata.clone(),
         min_traffic_bytes=batch_bytes * (k + m) // k,
-        time_budget=time_budget, stable_n=5)
+        time_budget=time_budget, stable_n=5, sleep=0.0, settle_s=0.0)
 
     return {
         "metric": "engine_closed_loop_GBps",

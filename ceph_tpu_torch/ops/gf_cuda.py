@@ -155,3 +155,21 @@ def matvec_device(mat: np.ndarray, data: torch.Tensor) -> torch.Tensor:
     global launches
     launches += 1
     return out
+
+
+def matvec_tiled(mat: np.ndarray, data: torch.Tensor) -> torch.Tensor:
+    """[w, p] (x) [p, N] -> [w, N] for a matrix of any size: one
+    :func:`matvec_device` per block of at most ``MAX_M`` rows and
+    ``MAX_K`` columns, the column blocks' partial products XORed together
+    (a [64, 176] matrix is 2 x 2 launches)."""
+    w, p = mat.shape
+    rows = []
+    for r0 in range(0, w, MAX_M):
+        acc = None
+        for c0 in range(0, p, MAX_K):
+            part = matvec_device(
+                np.ascontiguousarray(mat[r0:r0 + MAX_M, c0:c0 + MAX_K]),
+                data[c0:c0 + MAX_K])
+            acc = part if acc is None else acc.bitwise_xor_(part)
+        rows.append(acc)
+    return rows[0] if len(rows) == 1 else torch.cat(rows)

@@ -69,21 +69,9 @@ def _mat_sig(kind: str, mesh: Mesh, mat: np.ndarray) -> str:
 
 def matmul_local(mat: np.ndarray, x: torch.Tensor) -> torch.Tensor:
     """[w, p] (x) [p, N] -> [w, N] over GF(2^8) on ``x``'s device: kernel B1
-    (on the current stream) for a CUDA tensor, tiled over row blocks of at
-    most ``gf_cuda.MAX_M`` and column blocks of at most ``gf_cuda.MAX_K``,
-    the column blocks' partial products XORed together."""
-    w, p = mat.shape
-    rows = []
-    for r0 in range(0, w, gf_cuda.MAX_M):
-        acc = None
-        for c0 in range(0, p, gf_cuda.MAX_K):
-            part = gf_cuda.matvec_device(
-                np.ascontiguousarray(mat[r0:r0 + gf_cuda.MAX_M,
-                                         c0:c0 + gf_cuda.MAX_K]),
-                x[c0:c0 + gf_cuda.MAX_K])
-            acc = part if acc is None else acc.bitwise_xor_(part)
-        rows.append(acc)
-    return rows[0] if len(rows) == 1 else torch.cat(rows)
+    (on the current stream) for a CUDA tensor, tiled past its limit
+    (``gf_cuda.matvec_tiled``). The mesh steps' one seam to the product."""
+    return gf_cuda.matvec_tiled(mat, x)
 
 
 def _stripes_product(mat: np.ndarray, x: torch.Tensor) -> torch.Tensor:

@@ -98,8 +98,8 @@ Phases, each printing one JSON line:
    limit. Kernel launch counts are zeroed before and read after each
    step. The phase runs in a child process on the same card (this script
    with ``--cluster-phase``), so the cluster's threads stay out of this
-   process's profiler sessions, after phase 13 with 5e, 5f, 5g, 5h, 5i,
-   5j, 5k, 5l and 5d;
+   process's profiler sessions, after phase 13 with the other cluster
+   children (see 5d);
 5d. scrub: deep scrub on the card over the durable store, 5c's
    deployment on BlockStore (the BlueStore role; its data files in a
    temporary directory under ``build/scrub/``): 12 OSDs, the ISA k=8,m=3
@@ -125,10 +125,14 @@ Phases, each printing one JSON line:
    gathered batch, resident, beside its bound, shard GB verified a
    second, batches and objects a batch, and B1 and B2 launches by step
    (counts zeroed before and read after each step). It runs in a child
-   process like 5c (``--scrub-phase``), which takes no profiler session,
-   and it runs last. The cluster children (5c, 5e, 5f, 5g, 5h, 5i, 5j, 5k,
-   5l, 5m, 5d) run after phase 13: profiler sessions in this process
-   after a cluster child have come back empty (phase 8). The
+   process like 5c (``--scrub-phase``), which takes no profiler session.
+   The cluster children run after phase 13: profiler sessions in this
+   process after a cluster child have come back empty (phase 8). 5n and
+   5m, which time kernels on the card, run first, each alone; then 5k,
+   5f, 5l, 5c, 5g, 5i, 5d, 5j, 5e and 5h, three at a time, longest first
+   (each drives its cluster from host threads with the card nearly idle;
+   one after the other the children took 920-1000 s of the 1200 s). The
+   ``children`` line prints each child's wall and theirs together. The
    ``scrub_times`` line, in phase 5, gives the verify program's events
    and profiler device ms at 5d's batch shape (16 objects of 11 shards of
    128 KiB: seeded bytes, their parity and one flip) beside its bound;
@@ -388,6 +392,25 @@ Phases, each printing one JSON line:
    ``tools`` line prints each step's wall and B1/B2 launches, the
    tools' checked outputs and the fused and B3 ms. Runs in a child
    process (``--tools-phase``);
+5n. gap: the operator's measurement tools on the card. (a)
+   ``bench/measure.hbm_probe_gbps`` (a plain ``+1`` pass over a resident
+   64 MiB uint32 tensor, chained slope), printed beside the card's memory
+   rate (``ops/cost_model.hbm_rate``), which it must not pass by over 5%;
+   (b) the five rows of ``bench/rebaseline.py`` at its 16 Mi lanes, each
+   sampled for about 8 s: RS k=8,m=3 decode of 3 erasures, SHEC
+   k=8,m=4,c=3 encode and single-chunk recovery (B1), Clay k=8,m=4,d=11
+   repair (B1 tiled over the [64, 176] matrix, 4 launches a step), crc32c
+   over 24 MiB (B2); each passes its host gate and its first step equals
+   the plain version on the card, and B1/B2 launch the expected count a
+   step; (c) ``tools/gap_report.main`` at its ``--full`` deployment (12
+   OSDs, k=8, m=3, 4 MiB objects, 8 threads, ``--backend cuda``) with its
+   write bench cut from 20 to 5 s, under ``--profile``, with the crimson
+   and read-balance arms: the engine side measured on the card
+   (``engine_loop``), stage and commit-path coverage >= 90%, no section
+   or arm with an error, and B1 = B2 > 0 launches in the cluster run. The
+   ``gap`` line prints the probe, each row's GB/s, spread, samples and
+   launches, the stage table's shares, the arms' verdicts and each step's
+   wall. Runs in a child process (``--gap-phase``);
 6. Clay kernels against their plain versions on the card, byte-exact: B3
    and B4 over k=8,m=4,d=11, k=4,m=2 and k=4,m=3,d=6 (virtual nodes) at
    ragged L (B3 also at 64 and 32 Ki lanes, its short form; B3 and B4 from
@@ -544,6 +567,14 @@ TOOLS_OBJECT_BYTES = 4 << 20
 TOOLS_CLIENTS = 8
 TOOLS_CHECKED = 4
 TOOL_TIMEOUT = 120
+
+#: phase 5n: the probe's sampling seconds; each rebaseline row's (at the
+#: reference's 16 Mi lanes); gap_report at its ``--full`` deployment on
+#: the card, its write bench cut from 20 to 5 seconds
+GAP_PROBE_BUDGET = 3.0
+GAP_ROW_BUDGET = 8.0
+GAP_SECONDS = 5.0
+GAP_FULL = {"osds": 12, "k": 8, "m": 3, "obj_kb": 4096, "threads": 8}
 
 #: the repo's Clay deployment (BASELINE.json configs[3], bench.py:546):
 #: q=4, t=3, nu=0, 64 sub-chunks per chunk
@@ -4432,7 +4463,150 @@ def tools_phase(smi: str, backend: str = "cuda",
     return out
 
 
-#: the arguments that run phases 5c-5m alone (each the child process of
+def gap_phase(smi: str, backend: str = "cuda", n_lanes: int | None = None,
+              row_budget: float = GAP_ROW_BUDGET,
+              seconds: float = GAP_SECONDS, deployment: dict | None = None,
+              probe_budget: float = GAP_PROBE_BUDGET) -> dict:
+    """Phase 5n: the HBM probe, the five rebaseline rows and gap_report on
+    the card (see the module docstring). ``backend="torch"`` runs it on
+    the CPU with the plain versions at a small ``n_lanes`` and
+    ``deployment`` (a rehearsal: no launch is counted, the engine side is
+    none)."""
+    import io
+
+    from ceph_tpu_torch.bench import cluster_bench, measure, rebaseline
+    from ceph_tpu_torch.ops import cost_model, crc32c_cuda, gf_cuda
+    from ceph_tpu_torch.tools import gap_report
+
+    on_card = backend == "cuda"
+    dev = "cuda" if on_card else "cpu"
+    n_lanes = n_lanes or rebaseline.N_LANES
+    dep = deployment or GAP_FULL
+    t_phase = time.perf_counter()
+    walls, launches = {}, {}
+
+    def counts() -> dict:
+        return {"gf_matvec": gf_cuda.launches,
+                "crc32c_rows": crc32c_cuda.launches}
+
+    def step(label, fn):
+        gf_cuda.reset_launches()
+        crc32c_cuda.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        walls[label] = time.perf_counter() - t0
+        launches[label] = counts()
+        return out
+
+    # -- (a) the probe, beside the rate the noise guard takes
+    probe = step("probe", lambda: measure.hbm_probe_gbps(
+        budget=probe_budget, device=dev))
+    rate = measure.ceiling_bytes_per_s(torch.empty(0, device=dev))
+    check(0 < probe * 1e9 <= 1.05 * rate,
+          f"5n: the probe read {probe} GB/s against a rate of "
+          f"{rate / 1e9} GB/s")
+
+    # -- (b) the rebaseline rows: each row's host gate and its first step
+    # against the plain version run inside ``run_row`` (an assertion)
+    rows = []
+    for name in rebaseline.CASES:
+        row = step(name, lambda name=name: rebaseline.run_row(
+            name, dev, n_lanes, row_budget))
+        check("error" not in row and (row["GBps"] > 0 or not on_card),
+              f"5n: rebaseline {name}: {row}")
+        n = launches[name]
+        want = ({"gf_matvec": 0, "crc32c_rows": row["steps"]}
+                if name == "crc32c" else
+                {"gf_matvec": (4 if name == "clay_rep" else 1) * row["steps"],
+                 "crc32c_rows": 0})
+        if on_card:
+            check(n == want, f"5n: {name} launched {n}, not {want}")
+        rows.append(row)
+
+    # -- (c) gap_report at its --full deployment; the cluster run's
+    # launches counted apart from the engine loop's and the arms'
+    real_run_one = cluster_bench.run_one
+
+    def run_one(*args, **kw):
+        before = counts()
+        out = real_run_one(*args, **kw)
+        launches["cluster"] = {key: n - before[key]
+                               for key, n in counts().items()}
+        return out
+
+    argv = ["--seconds", str(seconds), "--osds", str(dep["osds"]),
+            "--k", str(dep["k"]), "--m", str(dep["m"]),
+            "--obj-kb", str(dep["obj_kb"]), "--threads", str(dep["threads"]),
+            "--backend", backend, "--profile"]
+    buf = io.StringIO()
+    cluster_bench.run_one = run_one
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = step("gap_report", lambda: gap_report.main(argv))
+    finally:
+        cluster_bench.run_one = real_run_one
+    lines = [line for line in buf.getvalue().splitlines()
+             if line.startswith('{"gap_report"')]
+    check(rc == 0 and len(lines) == 1,
+          f"5n: gap_report exited {rc}: {buf.getvalue()[-2000:]}")
+    sys.stderr.write("\n".join(line for line in buf.getvalue().splitlines()
+                               if not line.startswith('{"gap_report"')))
+    rep = json.loads(lines[0])["gap_report"]
+    check(rep["engine_source"] == ("engine_loop" if on_card else "none"),
+          f"5n: engine side {rep['engine_source']}")
+    if on_card:
+        check(rep["engine_GBps"] > 0, f"5n: engine {rep['engine_GBps']}")
+    commit = rep["commit_path"]
+    check(rep["ops"] > 0 and rep["coverage_pct"] >= 90 and
+          commit.get("coverage_pct", 0) >= 90,
+          f"5n: ops {rep['ops']}, coverage {rep['coverage_pct']}, commit "
+          f"path {commit.get('coverage_pct')}")
+    check("error" not in rep, f"5n: gap_report {rep.get('error')}")
+    for key in ("mesh", "knobs", "store", "what_if", "dispatch", "crimson",
+                "read_balance"):
+        check(key in rep and "error" not in rep[key] and
+              "skipped" not in rep[key], f"5n: {key} {rep.get(key)}")
+    cl = launches["cluster"]
+    if on_card:
+        check(cl["gf_matvec"] == cl["crc32c_rows"] > 0,
+              f"5n: the cluster run launched {cl}")
+    loop = rep.get("engine_loop") or {}
+    crimson, balance = rep["crimson"], rep["read_balance"]
+    out = {"phase": "gap", "card": smi, "backend": backend,
+           "probe_GBps": probe, "rate_GBps": rate / 1e9,
+           "rate_source": cost_model.hbm_rate()[1] if on_card else "cpu",
+           "lanes": n_lanes, "row_budget_s": row_budget,
+           "rows": rows,
+           "deployment": dep | {"seconds": seconds},
+           "cluster_MBps": rep["cluster_MBps"],
+           "cluster_p50_ms": rep["cluster_p50_ms"],
+           "cluster_p99_ms": rep["cluster_p99_ms"],
+           "engine_GBps": rep["engine_GBps"],
+           "engine_chained_GBps": loop.get("chained_GBps"),
+           "gap_x": rep["gap_x"], "ops": rep["ops"],
+           "coverage_pct": rep["coverage_pct"],
+           "stages": {s: e["share_pct"] for s, e in rep["stages"].items()},
+           "stage_ms": {s: e["mean_ms"] for s, e in rep["stages"].items()},
+           "commit_path": {s: e["share_of_commit_pct"] for s, e
+                           in commit.get("stages", {}).items()},
+           "commit_coverage_pct": commit.get("coverage_pct"),
+           "profiler": {key: rep["profiler"][key] for key in
+                        ("samples", "attributed_pct",
+                         "sampler_overhead_pct")},
+           "crimson": {key: crimson.get(key) for key in
+                       ("load_gen_MBps", "p99_ms", "ops", "hops_per_op")}
+           | {"honesty": crimson.get("projection_honesty", {})
+              .get("verdict")},
+           "read_balance": {"primary_GBps": balance["primary"]["GBps"],
+                            "anyk_GBps": balance["anyk"]["GBps"],
+                            "verdict": balance["verdict"]},
+           "walls": walls, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+#: the arguments that run phases 5c-5n alone (each the child process of
 #: :func:`phase_in_child`)
 CLUSTER_CHILD_ARG = "--cluster-phase"
 SCRUB_CHILD_ARG = "--scrub-phase"
@@ -4445,24 +4619,37 @@ RGW_CHILD_ARG = "--rgw-phase"
 CEPHFS_CHILD_ARG = "--cephfs-phase"
 MESH_CHILD_ARG = "--mesh-phase"
 TOOLS_CHILD_ARG = "--tools-phase"
+GAP_CHILD_ARG = "--gap-phase"
 #: with ``--witness-phase``: 5h's steps with neither the witness nor
 #: lock timing armed (what the wrappers cost, beside an armed run)
 WITNESS_UNARMED_ARG = "--unarmed"
 
 
-def phase_in_child(arg: str, phase: str, timeout: float = 900,
-                   env: dict | None = None) -> dict:
-    """Run a cluster phase in a child process on the same card (this
-    script with ``arg``, ``env`` added to this process's environment), so
-    the cluster's ~150 threads and whatever they leave behind stay out of
-    the later phases' profiler sessions (torch.profiler has returned
-    empty sessions after them). The child prints its ``phase`` line,
-    echoed here, and exits non-zero on any failed check. Returns that
-    line."""
+#: the children that run side by side, this many at once: each drives a
+#: cluster from host threads under one interpreter lock with the card
+#: nearly idle (PERF.md section 5), and one after the other they took
+#: 920-1000 s of the script's 1200 s
+CHILD_LANES = 3
+CHILD_TIMEOUT_S = 900
+#: the environment of the children whose fused flush notes its costs
+COST_ENV = {"CEPH_TPU_COST_ANALYSIS": "1"}
+
+
+def _run_child(arg: str, env: dict | None) -> tuple:
+    """This script with ``arg`` in a child process on the same card,
+    ``env`` added to this process's environment; returns the finished
+    process and its wall."""
+    t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), arg],
-        capture_output=True, text=True, timeout=timeout,
+        capture_output=True, text=True, timeout=CHILD_TIMEOUT_S,
         env={**os.environ, **(env or {})})
+    return proc, time.perf_counter() - t0
+
+
+def _child_line(arg: str, phase: str, proc) -> dict:
+    """Echo a finished child's stderr and its ``phase`` line; fail unless
+    it exited 0 with exactly one such line. Returns that line."""
     sys.stderr.write(proc.stderr)
     lines = [line for line in proc.stdout.splitlines()
              if line.startswith(f'{{"phase": "{phase}"')]
@@ -4470,6 +4657,37 @@ def phase_in_child(arg: str, phase: str, timeout: float = 900,
           f"{arg} child exited {proc.returncode}: {proc.stdout[-2000:]}")
     print(lines[0], flush=True)
     return json.loads(lines[0])
+
+
+def phase_in_child(arg: str, phase: str, env: dict | None = None,
+                   walls: dict | None = None) -> dict:
+    """Run a cluster phase alone in a child process on the same card, so
+    the cluster's ~150 threads and whatever they leave behind stay out of
+    the later phases' profiler sessions (torch.profiler has returned
+    empty sessions after them). The child prints its ``phase`` line,
+    echoed here, and exits non-zero on any failed check. Returns that
+    line; its wall goes into ``walls``."""
+    proc, wall = _run_child(arg, env)
+    if walls is not None:
+        walls[phase] = wall
+    return _child_line(arg, phase, proc)
+
+
+def phases_in_children(specs, walls: dict,
+                       lanes: int = CHILD_LANES) -> dict:
+    """Run the children ``specs`` ((arg, phase, env) each) as
+    :func:`phase_in_child` does, up to ``lanes`` at once, started in the
+    order given (longest first, so the lanes end near together). Their
+    stderr and lines are echoed in that order once all have ended.
+    Returns each phase's line by name; the walls go into ``walls``."""
+    with ThreadPoolExecutor(lanes) as pool:
+        done = list(pool.map(lambda spec: _run_child(spec[0], spec[2]),
+                             specs))
+    out = {}
+    for (arg, phase, _), (proc, wall) in zip(specs, done):
+        walls[phase] = wall
+        out[phase] = _child_line(arg, phase, proc)
+    return out
 
 
 def child_main(phase) -> int:
@@ -5498,6 +5716,7 @@ def main() -> int:
     from ceph_tpu_torch.osd import ec_util
     from ceph_tpu_torch.utils import checksum
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5770,7 +5989,7 @@ def main() -> int:
     # -- 5 (scrub). the deep-scrub verify program at phase 5d's batch shape:
     # a PG's 16 objects of 11 shards of 128 KiB, seeded bytes, their parity
     # and one flip (timed here, with the other kernel times: phase 5d runs
-    # in a child that takes no profiler session, and runs last)
+    # in a child that takes no profiler session)
     vdata = np.random.default_rng(SEED + 18).integers(
         0, 256, (SCRUB_BATCH_OBJECTS, K, OBJECT_BYTES // K), dtype=np.uint8)
     vbatch = np.concatenate(
@@ -5804,41 +6023,59 @@ def main() -> int:
     # -- 13. the engine under torch.profiler ------------------------------
     engine_profile_phase(dev, codec, sinfo)
 
-    # -- 5c-5m. the cluster phases, each in a child process on the card,
+    # -- 5c-5n. the cluster phases, each in a child process on the card,
     # after every profiler session of this process: sessions after a
     # cluster child have come back empty (phase 8) --------------------------
-    # 5c. the OSD chain: a MiniCluster pool on the card
-    threaded = phase_in_child(CLUSTER_CHILD_ARG, "cluster")
+    child_walls: dict = {}
+    t_children = time.perf_counter()
+    # 5n. the probe, the rebaseline rows and gap_report on the card, and
+    # 5m. the host tools against a vstart cluster and Clay's fused encode:
+    # each alone, since both time kernels on the card
+    gap_launches = phase_in_child(GAP_CHILD_ARG, "gap",
+                                  walls=child_walls)["launches"]
+    tools_launches = phase_in_child(TOOLS_CHILD_ARG, "tools",
+                                    walls=child_walls)["launches"]
+    # the others CHILD_LANES at a time, longest first: 5k CephFS (an MDS,
+    # a standby, two mounts), 5f degraded serving under cephx, 5l the
+    # multi-device mesh, 5c the OSD chain, 5g the mgr's default modules
+    # with the closed-loop tuner live, 5i RBD images, 5d deep scrub over
+    # BlockStore, 5j the RADOS gateway over HTTP, 5e 5c's pool on crimson
+    # OSDs, 5h 5c's deployment under the lock witness and lock timing
+    lines = phases_in_children([
+        (CEPHFS_CHILD_ARG, "cephfs", COST_ENV),
+        (SERVING_CHILD_ARG, "serving", None),
+        (MESH_CHILD_ARG, "mesh", None),
+        (CLUSTER_CHILD_ARG, "cluster", None),
+        (MGR_CHILD_ARG, "mgr", None),
+        (RBD_CHILD_ARG, "rbd", COST_ENV),
+        (SCRUB_CHILD_ARG, "scrub", None),
+        (RGW_CHILD_ARG, "rgw", COST_ENV),
+        (CRIMSON_CHILD_ARG, "crimson", None),
+        (WITNESS_CHILD_ARG, "witness", None)], child_walls)
+    emit({"phase": "children", "card": smi, "lanes": CHILD_LANES,
+          "walls_s": child_walls,
+          "wall_s": time.perf_counter() - t_children,
+          "script_s": time.perf_counter() - t_script})
+    threaded = lines["cluster"]
     cluster_launches = threaded["launches"]
-    # 5e. the same pool on crimson OSDs, beside 5c's threaded steps
-    crimson = phase_in_child(CRIMSON_CHILD_ARG, "crimson")
+    crimson = lines["crimson"]
     emit(crimson_vs_threaded(crimson, threaded, smi))
-    # 5f. degraded serving under cephx
-    serving = phase_in_child(SERVING_CHILD_ARG, "serving")
+    serving = lines["serving"]
     serving_launches = {"preload": serving["preload"]} | {
         p["phase"]: p["launches"] for p in serving["phases"]}
-    # 5g. the mgr's default modules with the closed-loop tuner live
-    mgr = phase_in_child(MGR_CHILD_ARG, "mgr")
+    mgr = lines["mgr"]
     check(mgr["build_ledger"]["compile_cache_misses"] == 0 and
           mgr["build_ledger"]["compile_cache_hits"] > 0,
           f"5g ran nvcc for a library phase 2 built: {mgr['build_ledger']}")
     mgr_launches = mgr["launches"] | {
         "traced_burst": mgr["traced_burst"]["launches"]}
-    # 5h. 5c's deployment under the lock witness and lock timing
-    witness = phase_in_child(WITNESS_CHILD_ARG, "witness")
+    witness = lines["witness"]
     emit(witness_vs_cluster(witness, threaded, smi))
     witness_launches = witness["launches"]
-    # 5i. RBD images on 5c's pool, the fused flush noting its costs
-    rbd_launches = phase_in_child(RBD_CHILD_ARG, "rbd", env={
-        "CEPH_TPU_COST_ANALYSIS": "1"})["launches"]
-    # 5j. the RADOS gateway over HTTP on 5c's pool
-    rgw_launches = phase_in_child(RGW_CHILD_ARG, "rgw", env={
-        "CEPH_TPU_COST_ANALYSIS": "1"})["launches"]
-    # 5k. CephFS (an MDS, a standby, two mounts) on 5c's pool
-    cephfs_launches = phase_in_child(CEPHFS_CHILD_ARG, "cephfs", env={
-        "CEPH_TPU_COST_ANALYSIS": "1"})["launches"]
-    # 5l. the multi-device mesh: steps, engine and a cluster on slots
-    mesh = phase_in_child(MESH_CHILD_ARG, "mesh")
+    rbd_launches = lines["rbd"]["launches"]
+    rgw_launches = lines["rgw"]["launches"]
+    cephfs_launches = lines["cephfs"]["launches"]
+    mesh = lines["mesh"]
     mesh_launches = mesh["launches"]
     emit({"phase": "mesh_vs_engine", "card": smi,
           "engine_5b": drain,
@@ -5847,10 +6084,7 @@ def main() -> int:
                               **{key: mesh[name]["engine"][key] for key in
                                  ("drain_wall_s", "drain_GBps")}}
              for name in ("a", "b")}})
-    # 5m. the host tools against a vstart cluster; Clay's fused encode
-    tools_launches = phase_in_child(TOOLS_CHILD_ARG, "tools")["launches"]
-    # 5d. deep scrub over BlockStore
-    scrub_launches = phase_in_child(SCRUB_CHILD_ARG, "scrub")["launches"]
+    scrub_launches = lines["scrub"]["launches"]
 
     # -- 9. summary --------------------------------------------------------
     emit({"kernels": [
@@ -5882,6 +6116,8 @@ def main() -> int:
                            in mesh_launches.items()},
          "tools_launches": {step: n["gf_matvec"] for step, n
                             in tools_launches.items()},
+         "gap_launches": {step: n["gf_matvec"] for step, n
+                          in gap_launches.items()},
          "scrub_launches": {step: n["gf_matvec"] for step, n
                             in scrub_launches.items()},
          "decode": {label: {key: timings[label][key] for key in
@@ -5915,6 +6151,8 @@ def main() -> int:
                            in mesh_launches.items()},
          "tools_launches": {step: n["crc32c_rows"] for step, n
                             in tools_launches.items()},
+         "gap_launches": {step: n["crc32c_rows"] for step, n
+                          in gap_launches.items()},
          "scrub_launches": {step: n["crc32c_rows"] for step, n
                             in scrub_launches.items()}},
     ] + clay + [
@@ -5951,6 +6189,8 @@ if __name__ == "__main__":
         raise SystemExit(child_main(mesh_phase))
     if TOOLS_CHILD_ARG in sys.argv[1:]:
         raise SystemExit(child_main(tools_phase))
+    if GAP_CHILD_ARG in sys.argv[1:]:
+        raise SystemExit(child_main(gap_phase))
     if WITNESS_CHILD_ARG in sys.argv[1:]:
         armed = WITNESS_UNARMED_ARG not in sys.argv[1:]
         raise SystemExit(child_main(

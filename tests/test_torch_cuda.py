@@ -33,8 +33,11 @@ launches B1 and B2 (phase 5k's steps (c) and (d)). The mesh's sharded
 steps on CUDA slots (one slot, and 8 slots on one card) equal the same
 steps on CPU slots, a 64 x 176 matrix tiled over B1 included. Clay's
 ``build_encode_fused`` (plain torch) gives B3's bytes, and ``vstart --ec``
-without ``--backend`` runs its pool on the card through B1 and B2. Every
-test here needs an NVIDIA GPU and skips without one.
+without ``--backend`` runs its pool on the card through B1 and B2. Each
+``bench/rebaseline.py`` row equals its plain version on the card and
+launches its kernel every step, B1 tiled past its 32 x 128 limit equals
+the plain product, and the HBM probe reads no more than the card's
+memory rate. Every test here needs an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -1166,3 +1169,61 @@ def test_vstart_default_backend_on_the_card(cuda):
         assert io.read("v") == pay
     finally:
         stop()
+
+
+@pytest.mark.parametrize("row", ["rs_dec3", "shec_enc", "shec_rec",
+                                 "clay_rep", "crc32c"])
+def test_rebaseline_row_on_cuda_matches_plain(cuda, row):
+    """Each ``bench/rebaseline.py`` row at 1 Mi lanes on the card: its first
+    step equals the plain version inside the row (an assertion there), a
+    step's output equals the plain version on the whole batch, and every
+    step launched its kernel (``clay_rep``: B1 tiled 2 x 2)."""
+    from ceph_tpu_torch.bench import rebaseline
+    gf_cuda.reset_launches()
+    crc32c_cuda.reset_launches()
+    out = rebaseline.run_row(row, "cuda", n_lanes=1 << 20, budget=0.2)
+    torch.cuda.synchronize()
+    assert out["GBps"] > 0 and out["steps"] > 1
+    if row == "crc32c":
+        assert (gf_cuda.launches, crc32c_cuda.launches) == (0, out["steps"])
+    else:
+        per_step = 4 if row == "clay_rep" else 1
+        assert (gf_cuda.launches, crc32c_cuda.launches) == \
+            (per_step * out["steps"], 0)
+    case = rebaseline.CASES[row](1 << 20)
+    x = torch.from_numpy(case.data).to(cuda)
+    if case.mat is None:
+        got = rebaseline.crc_step(x.clone())
+        want = rebaseline.plain_crc_linear(x)
+    else:
+        got = rebaseline.matvec_step(case.mat, x.clone())
+        want = gf_torch.matvec(case.mat, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), row
+
+
+@pytest.mark.parametrize("w,p,n", [(64, 176, 32768), (33, 129, 4097),
+                                   (32, 128, 100)])
+def test_matvec_tiled_on_cuda_matches_plain(cuda, w, p, n):
+    """B1 tiled over blocks of 32 x 128 (Clay's [64, 176] repair matrix is
+    2 x 2 launches) equals the plain product, and launches one kernel a
+    block."""
+    mat = _bytes(w * p, w, p)
+    x = torch.from_numpy(_bytes(n, p, n)).to(cuda)
+    gf_cuda.reset_launches()
+    got = gf_cuda.matvec_tiled(mat, x)
+    torch.cuda.synchronize()
+    assert gf_cuda.launches == -(-w // gf_cuda.MAX_M) * -(-p // gf_cuda.MAX_K)
+    assert torch.equal(got, gf_torch.matvec(mat, x))
+
+
+def test_hbm_probe_under_the_card_rate(cuda):
+    """``bench/measure.hbm_probe_gbps`` on the card reads a positive rate
+    no more than 5% over the card's memory rate, the noise guard's
+    ceiling."""
+    from ceph_tpu_torch.bench import measure
+    from ceph_tpu_torch.ops import cost_model
+    gbps = measure.hbm_probe_gbps(budget=1.0)
+    assert 0 < gbps * 1e9 <= 1.05 * cost_model.hbm_rate()[0]
+    assert measure.ceiling_bytes_per_s(torch.empty(0, device=cuda)) == \
+        cost_model.hbm_rate()[0]

@@ -79,6 +79,8 @@ def test_scan_covers_the_port():
                  "ceph_tpu_torch/tools/analyze.py",
                  "ceph_tpu_torch/bench/engine_loop.py",
                  "ceph_tpu_torch/bench/measure.py",
+                 "ceph_tpu_torch/bench/rebaseline.py",
+                 "ceph_tpu_torch/tools/gap_report.py",
                  "ceph_tpu_torch/osd/ec_backend.py",
                  "ceph_tpu_torch/osd/osd.py",
                  "ceph_tpu_torch/parallel/mon.py",

@@ -11,9 +11,12 @@ rows, batcher and engine results and counters, placement maps, the verify
 twin, the Clay k=4,m=2 repair). Tolerance 0. The reference's csum is a
 uint32 that wraps; the port's is an int64 holding the same value.
 
-Then ``tests/test_mesh_cluster.py``'s non-pow2 test (a 3 x 2 mesh, 5
-stripes); a port and a reference ``MiniCluster`` with a default mesh and
-placement on, whose stores end equal shard for shard; the port's
+Then ``tests/test_mesh_cluster.py``'s tests: the non-pow2 mesh (a 3 x 2
+mesh, 5 stripes), the engine-on-mesh cluster scenario (writes, a deep
+scrub, degraded reads, an OSD revived; slot decisions and stores equal
+across the packages) and the loopback-vs-TCP fidelity run; a port and a
+reference ``MiniCluster`` with a default mesh and placement on, whose
+stores end equal shard for shard; the port's
 deliberate deviation, a poisoned sharded step that fails the op with EIO
 and falls back nowhere (the reference falls back to its single-device
 route); and the fixture that resets both packages' default meshes, which
@@ -647,6 +650,159 @@ def test_cluster_with_default_mesh_matches_reference(monkeypatch,
     assert not report.get("inconsistent") and \
         not ref_report.get("inconsistent")
     assert _port_counters()["mesh_scrub_batches"] > scrubs
+
+
+#: (cluster class, set_default_mesh, a default mesh of 8 devices, the
+#: placement module, the stage registry, the pool backend) of each package
+def _port_side():
+    from ceph_tpu_torch.utils.dataplane import dataplane
+    return (MiniCluster, mesh_mod.set_default_mesh,
+            lambda: mesh_mod.make_mesh(8, devices=CPU8), placement,
+            dataplane, "torch")
+
+
+def _ref_side():
+    from ceph_tpu.utils.dataplane import dataplane
+    return (RefCluster, ref_mesh_mod.set_default_mesh,
+            lambda: ref_mesh_mod.make_mesh(8), ref_placement, dataplane,
+            "jax")
+
+
+def _slot_stats(cluster) -> dict:
+    out = {"mesh_flushes": 0, "mesh_decode_flushes": 0,
+           "placement_flushes": 0, "slots": set()}
+    for st in {id(s): s for s in _engine_stats(cluster)}.values():
+        for key in ("mesh_flushes", "mesh_decode_flushes",
+                    "placement_flushes"):
+            out[key] += st[key]
+        out["slots"] |= set(st["per_slot_flushes"])
+    return out
+
+
+def _pgids(cluster, pool: str, oids) -> dict:
+    osdmap = cluster.mon.osdmap
+    pool_id = osdmap.pool_by_name[pool]
+    return {oid: (pool_id, osdmap.object_to_pg(pool_id, oid))
+            for oid in oids}
+
+
+def _mesh_scenario(side, payloads) -> dict:
+    """``tests/test_mesh_cluster.py``'s scenario on one package: a 4-OSD
+    cluster with a k=2,m=1 pool of 16 PGs on a default mesh of 8 devices,
+    the writes, a deep scrub, degraded reads with the highest OSD down,
+    its revival; the reference test's checks, and what is compared."""
+    cls, set_mesh, make, place, dataplane, backend = side
+    set_mesh(make())
+    try:
+        with cls(n_osds=4) as cluster:
+            cluster.create_ec_pool("pod", k=2, m=1, pg_num=16,
+                                   backend=backend)
+            io = cluster.client().open_ioctx("pod")
+            io.op_timeout = 120.0
+            for oid, data in payloads.items():
+                io.write_full(oid, data)
+            stats = _slot_stats(cluster)
+            assert stats["mesh_flushes"] > 0, stats
+            assert stats["placement_flushes"] > 0, stats
+            pgids = _pgids(cluster, "pod", payloads)
+            pmap = place.active_map()
+            assert pmap is not None and pmap.n_slots == 2
+            decisions = {str(p): pmap.slot(p) for p in pgids.values()}
+            assert stats["slots"] == set(decisions.values()), \
+                (stats, decisions)
+            for oid, data in payloads.items():
+                assert io.read(oid) == data, oid
+            tel = _scrub_counter(backend)
+            before = tel()
+            res = cluster.scrub_pool("pod", deep=True)
+            assert res.get("deep") and res["inconsistent"] == {}, res
+            assert tel() > before, "deep scrub never rode the mesh"
+            written = _stores(cluster)
+            victim = max(cluster.osds)
+            cluster.kill_osd(victim)
+            for oid, data in payloads.items():
+                assert io.read(oid) == data, f"degraded read {oid}"
+            assert _slot_stats(cluster)["mesh_decode_flushes"] > 0
+            cluster.revive_osd(victim)
+            cluster.wait_for_clean(timeout=60)
+            pmap2 = place.active_map()
+            assert {str(p): pmap2.slot(p)
+                    for p in pgids.values()} == decisions
+            for oid, data in payloads.items():
+                assert io.read(oid) == data, f"post-revive read {oid}"
+            return {"decisions": decisions, "slots": stats["slots"],
+                    "written": written, "revived": _stores(cluster)}
+    finally:
+        set_mesh(None)
+
+
+def _scrub_counter(backend):
+    if backend == "jax":
+        from ceph_tpu.utils.device_telemetry import telemetry as ref_tel
+        return lambda: ref_tel().perf.dump().get("mesh_scrub_batches", 0)
+    return lambda: telemetry().perf.dump().get("mesh_scrub_batches", 0)
+
+
+def test_engine_on_mesh_cluster_scenario(monkeypatch, no_early_resend):
+    """Counterpart of ``tests/test_mesh_cluster.py:75`` on both packages:
+    the writes ride the mesh through the placement slots (the slots the
+    engine saw are the slots of the PGs written), the deep scrub the mesh
+    verify, the reads with an OSD down the mesh decode; placement is the
+    same before and after the OSD's revival, and every acked write reads
+    back. The port's and the reference's slot decisions are equal, and so
+    are their stores after the writes and after the revival, shard for
+    shard."""
+    monkeypatch.setenv("CEPH_TPU_MESH_FLUSH_BYTES", "1")
+    rng = np.random.default_rng(31)
+    payloads = {f"pod{i}": rng.integers(0, 256, 64 * 1024,
+                                        dtype=np.uint8).tobytes()
+                for i in range(16)}
+    port = _mesh_scenario(_port_side(), payloads)
+    ref = _mesh_scenario(_ref_side(), payloads)
+    assert port["decisions"] == ref["decisions"]
+    assert port["slots"] == ref["slots"]
+    _assert_same_stores(ref["written"], port["written"])
+    _assert_same_stores(ref["revived"], port["revived"])
+
+
+def _fidelity_run(side, loopback: bool, monkeypatch):
+    """One fixed 8-write burst over one wire path: (placement decisions,
+    engine slots, per-op stage shapes)."""
+    cls, set_mesh, make, place, dataplane, backend = side
+    monkeypatch.setenv("CEPH_TPU_MSGR_LOOPBACK", "1" if loopback else "0")
+    dataplane().reset()
+    set_mesh(make())
+    try:
+        with cls(n_osds=3) as cluster:
+            cluster.create_ec_pool("fid", k=2, m=1, pg_num=8,
+                                   backend=backend)
+            io = cluster.client().open_ioctx("fid")
+            io.op_timeout = 120.0
+            oids = [f"fid{i}" for i in range(8)]
+            for oid in oids:
+                io.write_full(oid, oid.encode() * 4096)
+            pmap = place.active_map()
+            decisions = {oid: pmap.slot(p) for oid, p
+                         in _pgids(cluster, "fid", oids).items()}
+            shapes = sorted({tuple(s["stage"] for s in tl["stages"])
+                             for tl in dataplane().recent()})
+            return decisions, _slot_stats(cluster)["slots"], shapes
+    finally:
+        set_mesh(None)
+        monkeypatch.delenv("CEPH_TPU_MSGR_LOOPBACK")
+
+
+def test_placement_fidelity_loopback_vs_tcp(monkeypatch):
+    """Counterpart of ``tests/test_mesh_cluster.py:168``: the same burst
+    over the in-process loopback and over TCP
+    (``CEPH_TPU_MSGR_LOOPBACK``, ``parallel/messenger.py``) lands the same
+    PG -> slot decisions, the same engine slots and the same per-op stage
+    shapes; the port's loopback run equals the reference's."""
+    monkeypatch.setenv("CEPH_TPU_MESH_FLUSH_BYTES", "1")
+    lo = _fidelity_run(_port_side(), True, monkeypatch)
+    tcp = _fidelity_run(_port_side(), False, monkeypatch)
+    assert lo == tcp
+    assert lo == _fidelity_run(_ref_side(), True, monkeypatch)
 
 
 def test_poisoned_sharded_step_fails_op_with_eio(monkeypatch):
