@@ -58,6 +58,7 @@ from ceph_tpu_torch.models.base import SIMD_ALIGN, ErasureCode
 from ceph_tpu_torch.models.interface import ErasureCodeError
 from ceph_tpu_torch.models.registry import PLUGIN_VERSION, ErasureCodePlugin
 from ceph_tpu_torch.ops import backend as backend_mod
+from ceph_tpu_torch.utils.device_telemetry import telemetry
 from ceph_tpu_torch.utils.lru import BoundedLRU
 
 __erasure_code_version__ = PLUGIN_VERSION
@@ -86,7 +87,8 @@ class ErasureCodeClay(ErasureCode):
         self.decode_kernel = False
         self.sparse_lin = True
         self._enc_fn = None
-        self._lin_cache: BoundedLRU = BoundedLRU(self.LIN_CACHE_SIZE)
+        self._lin_cache: BoundedLRU = BoundedLRU(self.LIN_CACHE_SIZE,
+                                                 "clay.lin")
 
     # -- profile -----------------------------------------------------------
 
@@ -603,8 +605,19 @@ class ErasureCodeClay(ErasureCode):
         return out
 
     def _lin_cached(self, key, build):
-        """get_or_build on the linearized-transform LRU."""
-        return self._lin_cache.get_or_build(key, build)
+        """get_or_build on the linearized-transform LRU, counting hits and
+        misses into the device telemetry (``lin_matvec_*``): a miss rate
+        that climbs under a steady signature set means the bound is below
+        the live working set."""
+        built = []
+
+        def counted():
+            built.append(1)
+            return build()
+
+        out = self._lin_cache.get_or_build(key, counted)
+        telemetry().note_lin_matvec(hit=not built)
+        return out
 
     def _lin_matvec(self, sig_key: tuple, mat: np.ndarray, x: np.ndarray,
                     resolved: str, label: str) -> np.ndarray:

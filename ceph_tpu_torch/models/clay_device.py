@@ -40,6 +40,8 @@ bit-sliced ``torch.matmul``. No daemon path calls it.
 from __future__ import annotations
 
 import os
+import time
+import zlib
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -48,7 +50,16 @@ import torch
 from ceph_tpu_torch.ops import backend as backend_mod
 from ceph_tpu_torch.ops import (bitmatrix, clay_cuda, gf256, gf_block_sparse,
                                 gf_torch)
+from ceph_tpu_torch.utils import tracepoints
+from ceph_tpu_torch.utils.device_telemetry import telemetry
 from ceph_tpu_torch.utils.lru import BoundedLRU
+
+# host-only spans: a Clay call is one kernel, which a profiler's trace
+# times already, and a span's pair of CUDA events took 28 us of host time
+# a repair call under the profiler (H100 host; 56 us without), enough to
+# let the host pace a traced stretch the card paces untraced
+_CLAY = tracepoints.provider("clay")
+_SPAN_ENCODE = _CLAY.span("encode")
 
 
 # -- static trace ------------------------------------------------------
@@ -509,14 +520,18 @@ def build_encode_kernel(codec):
 
     Returns ``[k, ssc, L] uint8 tensor -> [m, ssc, L]``, any L: the
     kernel for a CUDA tensor, :func:`build_encode_fast` (the plain
-    version) for a CPU tensor."""
+    version) for a CPU tensor. Each call is span ``clay.encode``; the
+    tables' build is the set-up phase ``b3_tables``."""
+    t0 = time.perf_counter()
     fast = build_encode_fast(codec)
     kern = clay_cuda.EncodeKernel(encode_kernel_arrays(fast.tables))
+    telemetry().note_setup("b3_tables", time.perf_counter() - t0)
 
     def encode(c_data: torch.Tensor) -> torch.Tensor:
-        if not c_data.is_cuda:
-            return fast(c_data)
-        return kern(c_data)
+        with _SPAN_ENCODE():
+            if not c_data.is_cuda:
+                return fast(c_data)
+            return kern(c_data)
 
     encode.tables = fast.tables
     encode.plain = fast
@@ -727,8 +742,14 @@ def build_decode_matvec(codec, mat: np.ndarray, label: str = "decode"):
 
     Returns ``fn(x [k, N] uint8 tensor) -> [m, N]`` with ``fn.path`` in
     {"sparse", "dense"} and ``fn.measured`` carrying the calibration
-    numbers."""
+    numbers, which the device telemetry also records (``calibrations``,
+    as the reference's does, with the calibration's ``seconds``, also the
+    set-up phase ``calibration``). Each call of ``fn`` is span
+    ``clay.<label>_product`` with its ``route``."""
     mat = np.asarray(mat, dtype=np.uint8)
+    sig = (f"[{mat.shape[0]}x{mat.shape[1]}]"
+           f"#{zlib.crc32(mat.tobytes()):08x}")
+    span = _CLAY.span(f"{label}_product")
 
     def dense_fn(x):
         return backend_mod.matvec(mat, x, "cuda")
@@ -737,9 +758,17 @@ def build_decode_matvec(codec, mat: np.ndarray, label: str = "decode"):
         return gf_block_sparse.matvec_device(mat, x)
 
     def done(fn, path, measured=None):
-        fn.path = path
-        fn.measured = measured or {}
-        return fn
+        route = {"route": path}
+
+        def product(x):
+            with span(route):
+                return fn(x)
+
+        product.path = path
+        product.measured = measured or {}
+        if measured:
+            telemetry().note_calibration(label, sig, path, measured)
+        return product
 
     mode = os.environ.get("CEPH_TPU_CLAY_SPARSE", "auto").lower()
     if mode in ("0", "never", "off"):
@@ -750,13 +779,16 @@ def build_decode_matvec(codec, mat: np.ndarray, label: str = "decode"):
     if not plan.worthwhile or codec.device.type != "cuda":
         return done(dense_fn, "dense",
                     {"cost_frac": plan.cost_frac, "skipped": True})
+    t0 = time.perf_counter()
     sample = torch.zeros((mat.shape[1], 1 << 15), dtype=torch.uint8,
                          device=codec.device)
     t_dense = _best_of(dense_fn, sample)
     t_sparse = _best_of(sparse_fn, sample)
+    seconds = time.perf_counter() - t0
+    telemetry().note_setup("calibration", seconds)
     measured = {"cost_frac": round(plan.cost_frac, 4),
                 "dense_s": t_dense, "sparse_s": t_sparse,
-                "label": label}
+                "label": label, "seconds": seconds}
     if t_sparse < t_dense:
         return done(sparse_fn, "sparse", measured)
     return done(dense_fn, "dense", measured)
@@ -769,7 +801,7 @@ class ClayDeviceCodec:
 
     def __init__(self, codec) -> None:
         self.codec = codec
-        self._fns: BoundedLRU = BoundedLRU(64)
+        self._fns: BoundedLRU = BoundedLRU(64, "clay.transforms")
 
     def transform(self, erased: frozenset[int], c_in) -> torch.Tensor:
         """c_in: [q*t, ssc, L] uint8 (numpy or tensor); returns the

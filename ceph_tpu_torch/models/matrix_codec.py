@@ -37,7 +37,8 @@ class MatrixErasureCode(ErasureCode):
         self._m = 0
         self.coding_matrix: np.ndarray | None = None  # [m, k]
         self.backend = "auto"
-        self._decode_cache: BoundedLRU = BoundedLRU(DEFAULT_DECODE_CACHE)
+        self._decode_cache: BoundedLRU = BoundedLRU(DEFAULT_DECODE_CACHE,
+                                                    "matrix.decode_tables")
 
     # subclasses call this from init()
     def _setup(self, k: int, m: int, coding_matrix: np.ndarray,

@@ -74,7 +74,7 @@ class ErasureCodeShec(MatrixErasureCode):
     def __init__(self, device="cuda") -> None:
         super().__init__(device)
         self.c = 0
-        self._plan_cache: BoundedLRU = BoundedLRU(1024)
+        self._plan_cache: BoundedLRU = BoundedLRU(1024, "shec.plans")
 
     def init(self, profile):
         profile = dict(profile)

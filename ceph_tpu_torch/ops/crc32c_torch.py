@@ -200,6 +200,14 @@ def crc_linear_device(x: torch.Tensor) -> torch.Tensor:
     linearity. Stage 1 goes through kernel B2 for a CUDA tensor.
     """
     from ceph_tpu_torch.ops import crc32c_cuda
+    rowc = crc32c_cuda.crc_rows(row_view(x))
+    r = _round_up(max(x.shape[1], 1), ROW_BYTES) // ROW_BYTES
+    return combine_rows(rowc.reshape(x.shape[0], r))
+
+
+def row_view(x: torch.Tensor) -> torch.Tensor:
+    """[n, L] uint8 -> [n * r, ROW_BYTES]: each buffer front-padded to r
+    whole rows (free, by linearity), the rows of one buffer adjacent."""
     if x.dtype != torch.uint8 or x.dim() != 2:
         raise ValueError(f"x must be [n, L] uint8, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -207,9 +215,7 @@ def crc_linear_device(x: torch.Tensor) -> torch.Tensor:
     padded = _round_up(max(ln, 1), ROW_BYTES)
     if padded != ln:
         x = F.pad(x, (padded - ln, 0))
-    r = padded // ROW_BYTES
-    rowc = crc32c_cuda.crc_rows(x.contiguous().reshape(n * r, ROW_BYTES))
-    return combine_rows(rowc.reshape(n, r))
+    return x.contiguous().reshape(n * (padded // ROW_BYTES), ROW_BYTES)
 
 
 def crc32c_from_linear(lin: int, length: int, seed: int = 0) -> int:

@@ -111,14 +111,20 @@ def build_all(names) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for kernel ``name``, building it on first use."""
+    """The loaded library for kernel ``name``, building it on first use;
+    the first load's seconds (build included) are the device telemetry's
+    set-up phase ``kernel_load``."""
     lib = _libs.get(name)
     if lib is None:
+        t0 = time.perf_counter()
         build_all([name])
         with _lock:
             lib = _libs.get(name)
             if lib is None:
                 lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+                from ceph_tpu_torch.utils.device_telemetry import telemetry
+                telemetry().note_setup("kernel_load",
+                                       time.perf_counter() - t0)
     return lib
 
 

@@ -30,7 +30,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ceph_tpu_torch.utils import tracepoints
 from ceph_tpu_torch.utils.lru import BoundedLRU
+
+_SPAN_PLAN = tracepoints.provider("bsparse").span("plan_lookup")
 
 #: GF rows per row group (the reference's 8*16 = 128 bit rows)
 TILE_M = 16
@@ -176,7 +179,7 @@ class _RunnerCache:
     linearized-transform cache it sits next to in models/clay.py."""
 
     def __init__(self) -> None:
-        self._lru = BoundedLRU(_PLAN_CACHE_SIZE)
+        self._lru = BoundedLRU(_PLAN_CACHE_SIZE, "bsparse.plans")
 
     def get(self, mat: np.ndarray, tile_m: int, tile_k: int):
         mat = np.asarray(mat, dtype=np.uint8)
@@ -200,8 +203,10 @@ def matvec_device(mat: np.ndarray, data: torch.Tensor,
     mat: [m, k] uint8 (host). data: [k, N] uint8 tensor. Returns [m, N]
     uint8 on data's device, byte-identical to the dense product (zero
     blocks contribute nothing over GF). On CUDA this launches kernel B5
-    or raises."""
-    _plan, runner = _runner_cache.get(mat, tile_m, tile_k)
+    or raises. The plan's lookup (which hashes the matrix) is span
+    ``bsparse.plan_lookup``."""
+    with _SPAN_PLAN():
+        _plan, runner = _runner_cache.get(mat, tile_m, tile_k)
     return runner(data)
 
 

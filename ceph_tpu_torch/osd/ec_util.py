@@ -37,8 +37,10 @@ import torch
 from ceph_tpu_torch.models.interface import ErasureCodeError
 from ceph_tpu_torch.models.matrix_codec import MatrixErasureCode
 from ceph_tpu_torch.ops import backend as backend_mod
-from ceph_tpu_torch.ops import cost_model, crc32c_torch, native_loader
+from ceph_tpu_torch.ops import (cost_model, crc32c_cuda, crc32c_torch,
+                                native_loader)
 from ceph_tpu_torch.utils import checksum
+from ceph_tpu_torch.utils import tracepoints as _tracepoints
 from ceph_tpu_torch.utils.device_telemetry import telemetry
 
 #: initial per-shard crc seed (the reference seeds with -1, ECUtil.h:117)
@@ -565,16 +567,35 @@ def _segments(data_dev: torch.Tensor, parity: torch.Tensor, lens,
     return segs.reshape(nops * (k + m), lmax)
 
 
+_EC = _tracepoints.provider("ec")
+_SPAN_STEP = _EC.span("fused_step", device=True)
+_SPAN_B1 = _EC.span("b1", device=True)
+_SPAN_SEGMENTS = _EC.span("segments", device=True)
+_SPAN_B2 = _EC.span("b2", device=True)
+_SPAN_COMBINE = _EC.span("crc_combine", device=True)
+_SPAN_UPLOAD = _EC.span("upload", device=True)
+_SPAN_TRANSPOSE = _EC.span("transpose", device=True)
+_SPAN_DOWNLOAD = _EC.span("download", device=True)
+
+
 def fused_step(mat: np.ndarray, data_dev: torch.Tensor, lens, lmax: int,
                backend: str) -> tuple[torch.Tensor, torch.Tensor]:
     """The fused flush's device step, queued on the current stream:
     parity[m, N] = mat (x) data_dev (kernel B1 for the ``cuda`` backend)
     and [nops, k + m] int64 linear crc parts of every op's per-shard
     segment (``lens``, padded to ``lmax``) from the same device tensors
-    (kernel B2 + the stage-2 combine)."""
-    parity = backend_mod.matvec(mat, data_dev, backend)
-    lin = crc32c_torch.crc_linear_device(
-        _segments(data_dev, parity, lens, lmax))
+    (kernel B2 + the stage-2 combine). Span ``ec.fused_step``, in the
+    phases ``ec.b1``, ``ec.segments``, ``ec.b2`` and ``ec.crc_combine``."""
+    step = _SPAN_STEP()
+    with step:
+        step.phase(_SPAN_B1)
+        parity = backend_mod.matvec(mat, data_dev, backend)
+        step.phase(_SPAN_SEGMENTS)
+        segs = _segments(data_dev, parity, lens, lmax)
+        step.phase(_SPAN_B2)
+        rowc = crc32c_cuda.crc_rows(crc32c_torch.row_view(segs))
+        step.phase(_SPAN_COMBINE)
+        lin = crc32c_torch.combine_rows(rowc.view(segs.shape[0], -1))
     n_chunks = data_dev.shape[0] + parity.shape[0]
     return parity, lin.reshape(len(lens), n_chunks)
 
@@ -636,10 +657,12 @@ def _flush_device_fused_async(sinfo: StripeInfo, codec, ops, bufs,
     src = batch if pinned else torch.from_numpy(batch)
     stream = torch.cuda.current_stream(device) if on_cuda else None
     with torch.cuda.stream(stream) if on_cuda else nullcontext():
-        flat = src.to(device, non_blocking=pinned)
+        with _SPAN_UPLOAD():
+            flat = src.to(device, non_blocking=pinned)
         t1 = time.perf_counter()
-        data_dev = flat.view(s, k, cs).permute(1, 0, 2).contiguous() \
-            .view(k, s * cs)
+        with _SPAN_TRANSPOSE():
+            data_dev = flat.view(s, k, cs).permute(1, 0, 2).contiguous() \
+                .view(k, s * cs)
         t2 = time.perf_counter()
         if signature not in _costed_signatures and \
                 os.environ.get("CEPH_TPU_COST_ANALYSIS"):
@@ -660,8 +683,9 @@ def _flush_device_fused_async(sinfo: StripeInfo, codec, ops, bufs,
                     for t in (data_dev, parity, lin)]
             t4 = time.perf_counter()
             with torch.cuda.stream(stream):
-                for host, dev_t in zip(outs, (data_dev, parity, lin)):
-                    host.copy_(dev_t, non_blocking=True)
+                with _SPAN_DOWNLOAD():
+                    for host, dev_t in zip(outs, (data_dev, parity, lin)):
+                        host.copy_(dev_t, non_blocking=True)
                 done = torch.cuda.Event()
                 done.record(stream)
             done.synchronize()

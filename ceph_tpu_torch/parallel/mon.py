@@ -155,7 +155,7 @@ class Monitor:
         # in-memory dedup for commands still awaiting their proposal
         # (holds the waiting connections) + completed-reply LRU
         from ceph_tpu_torch.utils.lru import BoundedLRU
-        self._cmd_dedup: BoundedLRU = BoundedLRU(1024)
+        self._cmd_dedup: BoundedLRU = BoundedLRU(1024, "mon.cmd_dedup")
         #: monotonic deadline until which this PEON may serve reads
         #: from committed state (granted by leader HBs/commits —
         #: Paxos lease role; the leader's own lease is quorum

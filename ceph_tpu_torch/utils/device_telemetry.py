@@ -28,7 +28,11 @@ device path — one process-wide registry fed by:
   fallbacks;
 - ``models/clay_device.build_decode_matvec``: sparse-vs-dense
   calibration outcomes (winner + measured timings, per signature);
-- ``models/clay.py``: linearized-transform LRU hits/misses.
+- ``models/clay.py``: linearized-transform LRU hits/misses;
+- the port's set-up phases (``note_setup``: kernel library loads in
+  ``ops/cuda_build.load``, Clay's calibration and encode tables), and
+  every ``utils/lru.BoundedLRU``'s hits, misses and evictions by cache
+  name, in the snapshot.
 
 Counters are ALWAYS ON and cheap (one lock, integer adds); the
 per-signature side tables are bounded dicts. ``snapshot()`` is the
@@ -71,6 +75,8 @@ class DeviceTelemetry:
         self._calibrations: dict[str, dict] = {}
         #: signature -> compiled cost analysis (flops/bytes_accessed)
         self._costs: dict[str, dict] = {}
+        #: set-up phase -> {"seconds": total, "count": n}
+        self._setup: dict[str, dict] = {}
         #: exact live-byte mirrors of the hbm gauges (kept here so
         #: the peak update is race-free under one lock)
         self._hbm_staged = 0
@@ -374,6 +380,21 @@ class DeviceTelemetry:
     def note_lin_matvec(self, hit: bool) -> None:
         self.perf.inc("lin_matvec_hits" if hit else "lin_matvec_misses")
 
+    def note_setup(self, phase: str, seconds: float) -> None:
+        """``seconds`` of the port's own set-up in ``phase``: a kernel
+        library's load (with its ``nvcc`` build when it was not on disk,
+        ``kernel_load``), a repair signature's calibration
+        (``calibration``), Clay's encode tables (``b3_tables``)."""
+        with self._lock:
+            ent = self._setup.setdefault(phase, {"seconds": 0.0,
+                                                 "count": 0})
+            ent["seconds"] += seconds
+            ent["count"] += 1
+
+    def setup_seconds(self) -> dict[str, dict]:
+        with self._lock:
+            return {p: dict(v) for p, v in self._setup.items()}
+
     def note_mesh_dispatch(self) -> None:
         self.perf.inc("mesh_dispatches")
 
@@ -480,11 +501,14 @@ class DeviceTelemetry:
             costs = {s: dict(v) for s, v in self._costs.items()}
         with self._lock:
             slot_staged = dict(self._slot_staged)
+        from ceph_tpu_torch.utils.lru import cache_stats
         return {"counters": self.perf.dump(),
                 "compiles_by_signature": compiles,
                 "calibrations": calibrations,
                 "costs_by_signature": costs,
-                "slot_staged_bytes": slot_staged}
+                "slot_staged_bytes": slot_staged,
+                "setup_seconds": self.setup_seconds(),
+                "caches": cache_stats()}
 
     def snapshot_brief(self) -> dict:
         """Compact view for bench metric lines: scalar counters plus
